@@ -2,8 +2,8 @@
 
 The 60-second tour of the framework, equivalent to the reference's
 cpuLS_main.cpp run (firstVector + doOneSymbol over one frame) but with the
-synthetic channel the reference lacks.  Runs on any backend: CPU uses the
-XLA pipeline, a TPU picks the fused Pallas kernel automatically.
+synthetic channel the reference lacks.  Runs on the CPU or a GPU with the
+same body: jnp.fft (cuFFT on the GPU) plus the XLA-fused LS/MRC.
 
   python examples/01_loopback_demod.py [--platform cpu]
 """

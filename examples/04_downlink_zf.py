@@ -1,7 +1,7 @@
 """Multi-user zero-forcing downlink: precode 4 user streams onto 16 antennas.
 
 The reference's CPU-only downlink path (createZeroForcingMatrix /
-multiplyWithChannelInv, cpuLS.hpp:415-463) as batched per-subcarrier MXU
+multiplyWithChannelInv, cpuLS.hpp:415-463) as batched per-subcarrier
 solves: W = H^H (H H^H)^-1 per bin, applied to every data symbol, then
 verified by pushing the precoded antenna rows back through the channel --
 each user must see ONLY its own stream (inter-user leakage below -25 dB

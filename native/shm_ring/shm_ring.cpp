@@ -1,6 +1,6 @@
 // shm_ring: POSIX shared-memory symbol ring buffer.
 //
-// TPU-native re-design of the reference's IPC transport (C1+C2/C3/C4):
+// Re-design of the reference's IPC transport (C1+C2/C3/C4):
 // CSharedMemSimple.hpp (shm_open/ftruncate/mmap wrapper) plus the
 // ShMemSymBuff ring protocol (ShMemSymBuff.hpp:193-484): a fixed ring of
 // `len` symbol matrices, a producer (SDR ingest process, ring *master*) and
@@ -23,7 +23,7 @@
 //    instead of silently overwriting the slot the reader may be copying.
 //  * The read path can deinterleave (re,im) into planar float32 planes and
 //    drop the cyclic prefix during the copy-out (ShMemSymBuff.hpp:281-294),
-//    producing the exact layout the TPU feed wants with zero extra passes.
+//    producing the exact layout the device feed wants with zero extra passes.
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17 shm_ring.cpp -o libshm_ring.so -lrt -pthread
 
@@ -330,9 +330,8 @@ int ring_write_sc16(void* ring, const int16_t* sym, int wait, double timeout_s) 
 // Batch write: n contiguous slot-sized symbols from one buffer -- the
 // producer analogue of ring_read_frame.  An ingest process extracts many
 // symbols per radio recv buffer; writing them in ONE native call removes
-// the per-symbol foreign-call overhead that dominates the write leg
-// (docs/PERF.md "Host ring ingest profile": ~30 us/symbol of call overhead
-// vs ~4 us of memcpy at the reference geometry).
+// the per-symbol foreign-call overhead, which outweighs the memcpy of one
+// symbol at the reference geometry.
 //
 // Returns the number of symbols written (>= 0) or a negative error.
 //   wait != 0: blocks per slot; success means the full n landed.  On
@@ -537,8 +536,8 @@ static void copy_out_split_i16(Ring* r, int64_t seq, int16_t* re, int16_t* im,
 
 // sc16-native batch read: n consecutive symbols deinterleaved into planar
 // int16 planes WITHOUT the float conversion -- the zero-copy-fidelity feed
-// for device kernels that widen sc16 in VMEM (half the host and H2D bytes
-// of the float path).  Only valid on FMT_SC16 rings.
+// for device programs that widen sc16 on the device (half the host and
+// H2D bytes of the float path).  Only valid on FMT_SC16 rings.
 int ring_read_frame_i16(void* ring, int16_t* re, int16_t* im, int n, int cp,
                         double timeout_s) {
   Ring* r = static_cast<Ring*>(ring);

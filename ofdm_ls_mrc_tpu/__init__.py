@@ -1,6 +1,6 @@
-"""ofdm_ls_mrc_tpu: TPU-native massive-MIMO OFDM LS+MRC receiver framework.
+"""ofdm_ls_mrc_tpu: a massive-MIMO OFDM LS+MRC uplink receiver in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A JAX/XLA re-design, run on NVIDIA GPUs, of the capabilities of
 ``bhargav0410/gpu-accel-ofdm-ls-mrc`` (CUDA/C++ reference): per-symbol FFT,
 pilot-based Least-Squares channel estimation, Maximal Ratio Combining
 demodulation, multi-user zero-forcing downlink, a producer/consumer shared
@@ -9,9 +9,10 @@ phase-timing benchmark harness.
 
 Layers (bottom-up):
   golden/    pure-NumPy oracle, bit-faithful to the reference CPU chain
-  ops/       JAX ops: FFT (XLA / MXU-matmul / four-step), LS, MRC, ZF, mod
-  models/    jitted pipelines: UplinkReceiver, DownlinkTransmitter, streaming
-  parallel/  shard_map over an (ant, time) mesh; MRC psum over ICI
+  ops/       JAX ops: FFT (jnp.fft / DFT-matmul / four-step), LS, MRC, ZF, mod
+  models/    jitted pipelines: UplinkReceiver, DownlinkTransmitter, streaming;
+             body.choose_body picks the device body for the platform
+  parallel/  shard_map over an (ant, time) mesh; one MRC psum (NCCL)
   io/        C++ POSIX shm ring (ctypes), async double-buffered device feed
   sim/       synthetic channel, constellations, PN frame sync
   utils/     phase timers + avg/var report (reference printTimes analogue)

@@ -21,7 +21,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("file_a", help="reference output (e.g. Output_cpu.dat)")
-    ap.add_argument("file_b", help="candidate output (e.g. Output_tpu.dat)")
+    ap.add_argument("file_b", help="candidate output (e.g. Output_gpu.dat)")
     ap.add_argument("--subcarriers", type=int, default=1023,
                     help="row width (dimension-1)")
     ap.add_argument("--threshold-db", type=float, default=-40.0,

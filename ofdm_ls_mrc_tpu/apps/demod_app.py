@@ -29,28 +29,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="symbols per frame incl. pilot (lenOfBuffer)")
     ap.add_argument("--pilots", default="Pilots.dat",
                     help="pilot file (complex64, fftshift-ed on load)")
-    ap.add_argument("--output", default="Output_tpu.dat",
+    ap.add_argument("--output", default="Output_gpu.dat",
                     help="demodulated output (raw complex64 rows)")
     ap.add_argument("--num-frames", type=int, default=1,
                     help="frames to process (numTimes); 0 = run until the "
                          "ring shuts down or SIGINT (live mode)")
     ap.add_argument("--fft-impl", default=None,
                     choices=[None, "xla", "matmul", "four_step"],
-                    help="FFT implementation (default: backend-appropriate)")
-    ap.add_argument("--pipeline", default="fused",
-                    choices=["fused", "fast", "composed"],
-                    help="demod path: fused Pallas kernel (falls back to fast "
-                         "when FFT size has no (2^k, 128) split), XLA fastpath, "
-                         "or plain composed ops")
-    ap.add_argument("--kernel-precision", default="exact",
-                    choices=["exact", "bf16"],
-                    help="fused-kernel numerics: exact = fp32-grade; bf16 = "
-                         "plain-bf16 speed mode (~1e-2 rel err)")
+                    help="FFT implementation (default: jnp.fft, i.e. cuFFT "
+                         "on the GPU)")
+    ap.add_argument("--pipeline", default=None,
+                    choices=["composed", "fast"],
+                    help="demod body (models/body.py): composed = jnp.fft + "
+                         "XLA-fused LS/MRC (default); fast = DFT-as-GEMM "
+                         "permuted-order path")
     ap.add_argument("--batch-frames", type=int, default=1,
                     help="demodulate N whole frames per device dispatch via "
                          "the jitted capture scan (UplinkReceiver."
-                         "demod_capture) -- amortizes dispatch latency on "
-                         "remote/tunneled backends; disables the per-slot "
+                         "demod_capture) -- amortizes per-frame dispatch "
+                         "latency; disables the per-slot "
                          "timing table (decode granularity is the batch)")
     ap.add_argument("--per-symbol", action="store_true",
                     help="per-symbol streaming mode: ring -> "
@@ -80,13 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="demodulate on the SHARDED receiver over an "
                          "(ant, time) device mesh (antenna-sharded MRC with "
                          "one fused psum; parallel/sharded.py), e.g. 1x1 on "
-                         "a single chip or 4x2 on a pod slice")
+                         "one card or 4x1 on four")
     ap.add_argument("--sc16-native", action="store_true",
                     help="feed the device planar INT16 straight from an sc16 "
-                         "ring (half the host and H2D bytes; the fused "
-                         "kernel widens sc16 in VMEM at half the input HBM "
-                         "traffic).  Requires --ring-dtype sc16 and the "
-                         "fused pipeline; disables the per-slot timer")
+                         "ring (half the host and H2D bytes; the jitted "
+                         "body widens to float32 on the device).  Requires "
+                         "--ring-dtype sc16; disables the per-slot timer")
     ap.add_argument("--drop-dirty", action="store_true",
                     help="exclude BEST-EFFORT (possibly misaligned) frames "
                          "delivered under sustained writer overrun from the "
@@ -137,8 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--process-id", type=int, default=None,
                     help="--distributed: this process's id (0-based; "
                          "process 0 writes the output file)")
-    from ..utils import compile_cache
-    compile_cache.add_cli(ap)
+    ap.add_argument("--local-devices", default=None, metavar="IDS",
+                    help="--distributed: comma list of the local device ids "
+                         "this process opens (e.g. '2' for the third card of "
+                         "a host running one process per card); default: "
+                         "every local device")
     return ap
 
 
@@ -146,9 +145,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from ..utils import compile_cache
-    cache_dir = compile_cache.maybe_enable_from_args(args)
-    if cache_dir:
-        print(f"compilation cache: {cache_dir}", file=sys.stderr)
+    print(f"compilation cache: {compile_cache.enable()}", file=sys.stderr)
 
     from ..config import FrameConfig
     from ..golden.io import append_output, load_pilot
@@ -203,15 +200,9 @@ def main(argv=None) -> int:
     else:
         n_ant = n_time = 0
 
-    if args.sc16_native:
-        if args.ring_dtype != "sc16":
-            print("--sc16-native requires --ring-dtype sc16", file=sys.stderr)
-            return 2
-        if args.pipeline != "fused" and not args.per_symbol:
-            # Per-symbol bodies all widen int16 in-jit; the whole-frame
-            # bulk path specializes only a fused int16 entry.
-            print("--sc16-native requires the fused pipeline", file=sys.stderr)
-            return 2
+    if args.sc16_native and args.ring_dtype != "sc16":
+        print("--sc16-native requires --ring-dtype sc16", file=sys.stderr)
+        return 2
 
     if args.batch_frames > 1 and args.per_symbol:
         print("note: --batch-frames has no effect in --per-symbol mode",
@@ -255,77 +246,39 @@ def main(argv=None) -> int:
         from ..parallel import ShardedUplinkReceiver
         rx = ShardedUplinkReceiver(cfg, pilot, mesh,
                                    fft_impl=args.fft_impl,
-                                   pipeline=args.pipeline,
-                                   exact=(args.kernel_precision == "exact"))
+                                   pipeline=args.pipeline)
     else:
         rx = UplinkReceiver(cfg, pilot, fft_impl=args.fft_impl,
-                            pipeline=args.pipeline,
-                            exact=(args.kernel_precision == "exact"))
-    if args.sc16_native and rx.pipeline != "fused":
-        # The receiver downgraded (no (2^k, 128) split for this FFT size):
-        # int16 planes must not flow into the XLA fastpath, which only
-        # handles them by accident of scale cancellation.
-        print(f"--sc16-native requires the fused kernel, but fft_size="
-              f"{args.fft_size} has no (2^k, 128) split (pipeline fell back "
-              f"to {rx.pipeline!r})", file=sys.stderr)
-        return 2
-    # Fused pipeline: place frames in the kernel's [S, A, n1, n2] layout
-    # (free host reshape; avoids an on-device re-tiling copy per frame) --
-    # for BOTH the unsharded receiver and the sharded one (its 4-D
-    # shard_map specs accept the kernel-native layout, parallel/sharded.py).
-    device_shape = None
-    if rx.pipeline == "fused":
-        from ..ops.pallas_pipeline import fused_frame_shape
-        device_shape = fused_frame_shape(cfg.frame_len, cfg.num_antennas,
-                                         cfg.fft_size)
+                            pipeline=args.pipeline)
     put_fn = None
     if mesh is not None:
         # Mesh-sharded placement: antennas land on their shards at
         # device_put time so the jitted shard_map needn't reshard every
-        # frame.  Time-sharded meshes with the whole fused entry place the
-        # pilot-per-block layout (whole_blocks) so the time axis lands
-        # sharded too; otherwise the time alignment stays partial.
+        # frame.
         import jax as _jax
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         from ..ops.cplx import CArray as _CArray
         from ..parallel.mesh import ANT_AXIS
-        blocks = None
-        if (device_shape is not None and n_time > 1
-                and rx._demod_whole is not None and args.batch_frames == 1):
-            from ..parallel.sharded import whole_blocks
-            blocks = lambda p: whole_blocks(p, n_time)
-            sh = NamedSharding(mesh, rx._whole_spec)
-        else:
-            spec = (P(None, ANT_AXIS, None, None) if device_shape is not None
-                    else P(None, ANT_AXIS, None))
-            sh = NamedSharding(mesh, spec)
+        sh = NamedSharding(mesh, P(None, ANT_AXIS, None))
 
         def put_fn(re_h, im_h):
-            if blocks is not None:
-                re_h, im_h = blocks(re_h), blocks(im_h)
             return _CArray(_jax.device_put(re_h, sh),
                            _jax.device_put(im_h, sh))
 
     feed = _make_feed(ring, cfg, args.cp_size, timer, catch_up=args.catch_up,
-                      device_shape=device_shape, int16=args.sc16_native,
-                      put_fn=put_fn)
+                      int16=args.sc16_native, put_fn=put_fn)
 
     import jax
 
-    # Warm the EXACT input shape the feed will deliver: warming 3D and then
-    # feeding 4D would recompile on the first live frame, stalling the ring.
-    # Warm at the EXACT dtype the feed will deliver: int16 planes in
-    # sc16-native mode specialize a separate jit entry.
+    # Warm at the EXACT dtype and placement the feed will deliver: int16
+    # planes in sc16-native mode specialize a separate jit entry, and the
+    # sharded program specializes on its input shardings.
     feed_dtype = np.int16 if args.sc16_native else np.float32
-    if device_shape is not None or args.sc16_native or args.mesh:
+    shape = (cfg.frame_len, cfg.num_antennas, cfg.fft_size)
+    if args.sc16_native or args.mesh:
         from ..ops.cplx import CArray
-        shape = device_shape or (cfg.frame_len, cfg.num_antennas,
-                                 cfg.fft_size)
         zr, zi = np.zeros(shape, feed_dtype), np.zeros(shape, feed_dtype)
-        # Warm through put_fn when the feed will use it: the jitted program
-        # specializes on the input shardings (and the block layout), so the
-        # warm-up must place exactly like the live frames.
         z = put_fn(zr, zi) if put_fn is not None else CArray(zr, zi)
         jax.block_until_ready(rx.demod_frame(z).re)
     else:
@@ -336,8 +289,6 @@ def main(argv=None) -> int:
         import jax.numpy as jnp
 
         from ..ops.cplx import CArray
-        shape = device_shape or (cfg.frame_len, cfg.num_antennas,
-                                 cfg.fft_size)
         zr, zi = np.zeros(shape, feed_dtype), np.zeros(shape, feed_dtype)
         # Mirror flush_batch EXACTLY: per-frame put_fn placement, then the
         # same jnp.stack -- warming a plain host batch under --mesh would
@@ -401,13 +352,7 @@ def main(argv=None) -> int:
     dump_f = open(args.dump_symbols, "wb") if args.dump_symbols else None
 
     def dump_frame(fr):
-        from ..golden.io import SC16_FULL_SCALE
-        re, im = np.asarray(fr.re), np.asarray(fr.im)
-        if re.dtype != np.float32:        # sc16-native planes -> full scale
-            re = re.astype(np.float32) / SC16_FULL_SCALE
-            im = im.astype(np.float32) / SC16_FULL_SCALE
-        arr = (re + 1j * im).astype(np.complex64)
-        arr.reshape(cfg.frame_len, cfg.num_antennas, -1).tofile(dump_f)
+        _dump_planes(dump_f, np.asarray(fr.re), np.asarray(fr.im))
 
     def flush_batch():
         """Emit a full batch with one capture-scan dispatch + index rows.
@@ -525,15 +470,14 @@ def _run_distributed(args, cfg, pilot) -> int:
     fused MRC psum ((2*S_data+1)*F fp32 words/frame) is the only
     cross-process frame traffic (parallel/multihost.py).
 
-    Production grade (VERDICT r4 Missing #2 / Next #4): each host runs the
-    SAME RingFeed machinery as the single-host consumer (reader-thread
-    overlap, overrun resync, dirty provenance, catch-up, sc16-native int16
-    shards, continuous --num-frames 0), plus a per-frame LOCKSTEP
-    agreement: hosts exchange (writer_seq, dirty, end) in a tiny allgather
-    and laggards skip forward until every host holds the SAME writer frame
-    -- without it, independent per-host drops would silently MRC-combine
-    different transmitted frames.  Rank 0 writes the merged provenance
-    index (dirty if ANY host's shard was best-effort)."""
+    Each host runs the SAME RingFeed machinery as the single-host consumer
+    (reader-thread overlap, overrun resync, dirty provenance, catch-up,
+    sc16-native int16 shards, continuous --num-frames 0), plus a per-frame
+    LOCKSTEP agreement: hosts exchange (writer_seq, dirty, end) in a tiny
+    allgather and laggards skip forward until every host holds the SAME
+    writer frame -- without it, independent per-host drops would silently
+    MRC-combine different transmitted frames.  Rank 0 writes the merged
+    provenance index (dirty if ANY host's shard was best-effort)."""
     import jax
 
     from ..golden.io import append_output
@@ -555,7 +499,16 @@ def _run_distributed(args, cfg, pilot) -> int:
               "would desync rank-0 row accounting)", file=sys.stderr)
         return 2
     continuous = args.num_frames <= 0
-    initialize(args.distributed, args.num_processes, args.process_id)
+    local_ids = None
+    if args.local_devices:
+        try:
+            local_ids = [int(v) for v in args.local_devices.split(",")]
+        except ValueError:
+            print(f"--local-devices {args.local_devices!r}: expected a comma "
+                  "list of integers", file=sys.stderr)
+            return 2
+    initialize(args.distributed, args.num_processes, args.process_id,
+               local_device_ids=local_ids)
     from jax.experimental import multihost_utils
     nproc = jax.process_count()
     pid = jax.process_index()
@@ -566,7 +519,8 @@ def _run_distributed(args, cfg, pilot) -> int:
     a_local = cfg.num_antennas // nproc
     # Antennas shard over every device when the global count divides evenly,
     # else one shard per process; time stays unsharded so the output is
-    # replicated and the whole-frame in-shard-pilot entry applies.
+    # replicated.  make_multihost_mesh takes devices process-major, so each
+    # process's local antenna block lands on its own devices.
     ndev = jax.device_count()
     if cfg.num_antennas % ndev == 0:
         mesh = make_multihost_mesh(ant_shards=ndev, time_shards=1)
@@ -584,43 +538,39 @@ def _run_distributed(args, cfg, pilot) -> int:
         mesh = _Mesh(np.array([by_proc[i] for i in range(nproc)]
                               ).reshape(nproc, 1), (_A, _T))
     rx = ShardedUplinkReceiver(cfg, pilot, mesh, fft_impl=args.fft_impl,
-                               pipeline=args.pipeline,
-                               exact=(args.kernel_precision == "exact"))
-    if args.sc16_native and rx.pipeline != "fused":
-        print("--sc16-native requires the fused pipeline", file=sys.stderr)
-        return 2
+                               pipeline=args.pipeline)
+    # Which process holds each antenna shard, in shard order: process i
+    # must hold shard(s) of block i, the antennas its own ring carries.
+    owners = [d.process_index for d in mesh.devices[:, 0]]
+    print(f"[proc {pid}] antenna shards on processes {owners}",
+          file=sys.stderr)
 
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from ..ops.cplx import CArray
     from ..parallel.mesh import ANT_AXIS
 
-    shape4 = None
-    if rx.pipeline == "fused":
-        from ..ops.pallas_pipeline import fused_frame_shape
-        shape4 = fused_frame_shape(cfg.frame_len, a_local, cfg.fft_size)
-        gspec = P(None, ANT_AXIS, None, None)
-    else:
-        gspec = P(None, ANT_AXIS, None)
-    gsh = NamedSharding(mesh, gspec)
+    gsh = NamedSharding(mesh, P(None, ANT_AXIS, None))
+
+    dump_f = None       # opened after the warm-up, which must not be dumped
 
     def put_fn(re_h, im_h):
         """Host-local planar block -> global antenna-sharded frame (no
-        cross-host data movement; int16 planes stay int16)."""
+        cross-host data movement; int16 planes stay int16).  The debug tap
+        dumps this process's antennas of every frame read."""
+        if dump_f is not None:
+            _dump_planes(dump_f, re_h, im_h)
         gre = jax.make_array_from_process_local_data(gsh, re_h)
         gim = jax.make_array_from_process_local_data(gsh, im_h)
         return CArray(gre, gim)
 
-    if shape4 is not None:
-        demod = rx.demod_whole          # whole-placed global frame
-    else:
-        # Slice pilot/data INSIDE one jit: eager indexing of a
-        # multi-process global array is not addressable host-side.
-        demod3 = rx._demod
+    # Slice pilot/data INSIDE one jit: eager indexing of a multi-process
+    # global array is not addressable host-side.
+    demod_split = rx._demod
 
-        @jax.jit
-        def demod(c):
-            return demod3(c[0], c[1:], rx.x_full)
+    @jax.jit
+    def demod(c):
+        return demod_split(c[0], c[1:], rx.x_full)
 
     def to_host(out):
         # time_shards == 1 => the output is replicated on every device.
@@ -631,7 +581,7 @@ def _run_distributed(args, cfg, pilot) -> int:
     # Warm at the live shape + dtype BEFORE touching the ring, so the first
     # frame doesn't stall the producer on a compile.
     feed_dtype = np.int16 if args.sc16_native else np.float32
-    zshape = shape4 or (cfg.frame_len, a_local, cfg.fft_size)
+    zshape = (cfg.frame_len, a_local, cfg.fft_size)
     jax.block_until_ready(
         demod(put_fn(np.zeros(zshape, feed_dtype),
                      np.zeros(zshape, feed_dtype))).re)
@@ -639,12 +589,14 @@ def _run_distributed(args, cfg, pilot) -> int:
     ring = SymbolRing(args.shm_uid, a_local, args.fft_size + args.cp_size,
                       cfg.frame_len, master=False, timeout=args.timeout,
                       dtype=args.ring_dtype)
+    if args.dump_symbols:
+        dump_f = open(args.dump_symbols, "wb")
     # The per-host feed sees LOCAL geometry (this host's antenna shard).
     from ..config import FrameConfig as _FC
     cfg_local = _FC(num_antennas=a_local, fft_size=cfg.fft_size,
                     cyclic_prefix=0, frame_len=cfg.frame_len)
     feed = _make_feed(ring, cfg_local, args.cp_size, None,
-                      catch_up=args.catch_up, device_shape=shape4,
+                      catch_up=args.catch_up,
                       int16=args.sc16_native, put_fn=put_fn)
     gen = feed.frames()
 
@@ -709,6 +661,8 @@ def _run_distributed(args, cfg, pilot) -> int:
         ring.close()
         if index_f is not None:
             index_f.close()
+        if dump_f is not None:
+            dump_f.close()
     print(f"[proc {pid}] demodulated {rows} data symbols over {k} frame(s) "
           f"across {nproc} processes x {a_local} antennas "
           f"({rx.pipeline} pipeline"
@@ -796,13 +750,12 @@ def _run_per_symbol(args, cfg, pilot, ring, timer, continuous,
                                          fft_impl=args.fft_impl, timer=timer,
                                          pipeline=args.pipeline)
     else:
-        pipeline = "fused" if args.pipeline == "fused" else "composed"
-        if args.pipeline != pipeline:
+        if args.pipeline not in (None, "composed"):
             print(f"note: --per-symbol has no {args.pipeline!r} variant; "
                   f"using 'composed' (the reference per-symbol semantics)",
                   file=sys.stderr)
         sd = StreamingDemodulator(cfg, pilot, fft_impl=args.fft_impl,
-                                  timer=timer, pipeline=pipeline)
+                                  timer=timer)
     sd.warmup(int16=args.sc16_native)
     import os
     if args.resume and os.path.exists(args.resume):
@@ -815,9 +768,9 @@ def _run_per_symbol(args, cfg, pilot, ring, timer, continuous,
     first_write = True
     dump_f = open(args.dump_symbols, "wb") if args.dump_symbols else None
 
-    # Live observability for the low-latency loop (VERDICT r4 Weak #6 /
-    # Next #6): decision-directed EVM over the emitted rows and a per-frame
-    # provenance line in the SAME index format as the whole-frame consumer.
+    # Live observability for the low-latency loop: decision-directed EVM
+    # over the emitted rows and a per-frame provenance line in the SAME
+    # index format as the whole-frame consumer.
     # The writer-stream mapping rides the ring's consumed counter: the
     # pilot's symbol ordinal c identifies writer frame c // frame_len, and
     # a frame whose consumed span exceeds frame_len had catch-up skips
@@ -888,8 +841,8 @@ def _run_per_symbol(args, cfg, pilot, ring, timer, continuous,
                 # --catch-up (the reference GPU loop, gpuLS.cu:419-424);
                 # the pilot always reads in order to keep frame alignment.
                 # sc16-native reads deliver planar INT16 straight off the
-                # wire format (half the per-dispatch input DMA; the kernels
-                # widen on device).
+                # wire format (half the per-dispatch input copy; the jitted
+                # bodies widen on device).
                 if args.sc16_native:
                     read = (ring.read_last_planar_i16
                             if (args.catch_up and slot > 0)
@@ -911,13 +864,7 @@ def _run_per_symbol(args, cfg, pilot, ring, timer, continuous,
                     index_record(c_now)
                     frame_start_c = c_now
                 if dump_f is not None:
-                    if re.dtype != np.float32:   # sc16 planes -> full scale
-                        from ..golden.io import SC16_FULL_SCALE
-                        (re.astype(np.float32) / SC16_FULL_SCALE
-                         + 1j * im.astype(np.float32) / SC16_FULL_SCALE
-                         ).astype(np.complex64).tofile(dump_f)
-                    else:
-                        (re + 1j * im).astype(np.complex64).tofile(dump_f)
+                    _dump_planes(dump_f, re, im)
                 sym = CArray(re, im)
                 if slot == 0:
                     sd.push_pilot(sym, slot=slot)
@@ -953,8 +900,18 @@ def _run_per_symbol(args, cfg, pilot, ring, timer, continuous,
     return 0
 
 
-def _make_feed(ring, cfg, cp_size, timer, catch_up=False, device_shape=None,
-               int16=False, put_fn=None):
+def _dump_planes(fh, re: np.ndarray, im: np.ndarray) -> None:
+    """Append planar symbols to the debug tap as raw complex64 (sc16 planes
+    at full scale, as the device body widens them)."""
+    if re.dtype != np.float32:
+        from ..golden.io import SC16_FULL_SCALE
+        re = re.astype(np.float32) / SC16_FULL_SCALE
+        im = im.astype(np.float32) / SC16_FULL_SCALE
+    (re + 1j * im).astype(np.complex64).tofile(fh)
+
+
+def _make_feed(ring, cfg, cp_size, timer, catch_up=False, int16=False,
+               put_fn=None):
     """RingFeed wired for a CP-carrying ring feeding a CP-free pipeline."""
     from ..io.feed import RingFeed
 
@@ -1002,8 +959,7 @@ def _make_feed(ring, cfg, cp_size, timer, catch_up=False, device_shape=None,
             self._ring.shutdown()
 
     return RingFeed(_CpRingView(ring, cp_size), cfg, timer=timer,
-                    catch_up=catch_up, device_shape=device_shape, int16=int16,
-                    put_fn=put_fn)
+                    catch_up=catch_up, int16=int16, put_fn=put_fn)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ The CLI entry for the reference's CPU-only multi-user downlink path
 cpuLS.hpp:391-529, numUsers=4 per ShMemSymBuff_cucomplex.hpp:53-55), which
 the reference exposes only as library functions.  Per data symbol: the
 per-subcarrier ZF precoder maps U user streams onto A antennas (batched
-MXU solves, ops/zf.py), then each antenna row is OFDM-modulated with
+solves, ops/zf.py), then each antenna row is OFDM-modulated with
 max-abs normalization and cyclic prefix (ops/modulate.py).
 
 Channel input: a complex64 file of shape [F-1, U, A] (downlink channel per
@@ -51,8 +51,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="apply the channel to the precoded streams and "
                          "report per-user separation EVM (ZF removes "
                          "inter-user interference)")
-    from ..utils import compile_cache
-    compile_cache.add_cli(ap)
     return ap
 
 
@@ -68,7 +66,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from ..utils import compile_cache
-    compile_cache.maybe_enable_from_args(args)
+    compile_cache.enable()
 
     from ..config import FrameConfig
     from ..models.downlink import DownlinkTransmitter

@@ -280,7 +280,7 @@ def _run_continuous_sync(args, samples: np.ndarray, sym_len: int,
                     return
                 # [n_ch, S*L] -> [S, n_ch, L] burst; ONE native call per
                 # frame (write_batch) instead of one per symbol -- per-call
-                # overhead is the write leg's dominant cost (docs/PERF.md).
+                # overhead is the write leg's dominant cost.
                 burst = np.ascontiguousarray(
                     fr.reshape(n_ch, args.frame_len, sym_len).transpose(1, 0, 2))
                 state["written"] += ring.write_batch(

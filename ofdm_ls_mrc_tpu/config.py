@@ -52,20 +52,15 @@ class FrameConfig:
 
     def validate(self) -> "FrameConfig":
         """Checks the constraints EVERY pipeline shares.  fft_size: the
-        composed/fast paths factor it as (n1, n2) with n2 = 128 when
-        divisible, else a near-square even split -- any even size >= 2
-        works.  The FUSED Pallas kernel additionally needs the fast split to
-        be (power-of-two >= 2, multiple of 128), i.e. fft_size = 2^k * 128
-        with k >= 1; receivers asked for 'fused' on other sizes fall back to
-        'fast' with a RuntimeWarning (pallas_pipeline.warn_fused_fallback)."""
+        'fast' path factors it as (n1, n2) with n2 = 128 when divisible,
+        else a near-square even split -- any even size >= 2 works."""
         if self.num_antennas < 1:
             raise ValueError("num_antennas must be >= 1")
         if self.fft_size < 2 or self.fft_size & 1:
             raise ValueError(
                 f"fft_size must be an even size >= 2 (got {self.fft_size}); "
-                "the composed/fast pipelines factor it into a near-square "
-                "or (N/128, 128) split -- note the fused kernel further "
-                "requires 2^k * 128 (see pallas_pipeline.supports_fused)")
+                "the 'fast' pipeline factors it into a near-square "
+                "or (N/128, 128) split")
         if self.cyclic_prefix < 0:
             raise ValueError("cyclic_prefix must be >= 0")
         if self.frame_len < 2:
@@ -86,7 +81,7 @@ class RuntimeConfig:
     shm_uid: str = "/ofdm_ring"     # shmemID "/blah"
     pilots_path: str = "Pilots.dat"             # fileNameForX (cpuLS.hpp:41)
     pn_path: str = "PNSeq_255_MaxLenSeq.dat"    # rx_and_corr.cpp:228
-    output_path: str = "Output_tpu.dat"         # Output_cpu.dat analogue
+    output_path: str = "Output_gpu.dat"         # Output_gpu.dat (gpuLS.cuh)
     num_times: int = 1              # numTimes (ShMemSymBuff.hpp:75)
 
 

@@ -1,6 +1,6 @@
 """Golden NumPy oracle: bit-faithful re-derivation of the reference CPU DSP.
 
-This module is the semantic contract for the whole framework. Every JAX/Pallas
+This module is the semantic contract for the whole framework. Every JAX
 op is unit-tested against these functions, which re-derive (NOT translate) the
 math of the reference CPU chain:
 

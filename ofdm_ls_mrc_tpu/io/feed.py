@@ -29,7 +29,7 @@ class FrameAssembler:
     """Collects per-symbol planar reads into a [S, A, F] planar frame pair.
 
     dtype float32 by default; int16 for the sc16-native feed (half the host
-    buffer and H2D bytes; the fused kernel widens in VMEM)."""
+    buffer and H2D bytes; the jitted body widens on the device)."""
 
     def __init__(self, cfg: FrameConfig, dtype=np.float32):
         self.cfg = cfg
@@ -73,8 +73,7 @@ class RingFeed:
 
     def __init__(self, ring: SymbolRing, cfg: FrameConfig,
                  timer: Optional[PhaseTimer] = None, depth: int = 2,
-                 catch_up: bool = False, device_shape=None,
-                 int16: bool = False, put_fn=None):
+                 catch_up: bool = False, int16: bool = False, put_fn=None):
         if ring.cols != cfg.symbol_len:
             raise ValueError(f"ring cols {ring.cols} != symbol_len {cfg.symbol_len}")
         if ring.rows != cfg.num_antennas:
@@ -105,9 +104,9 @@ class RingFeed:
         # delivered best-effort under sustained overrun (possibly
         # misaligned).  Consumers that persist output must record or drop
         # dirty frames -- a dirty frame in the same output stream as clean
-        # ones is otherwise indistinguishable downstream (VERDICT r2 Weak
-        # #6; the observable form of readLastSymbol's deliberate-loss
-        # semantics, reference ShMemSymBuff.hpp:300-331).
+        # ones is otherwise indistinguishable downstream (the observable
+        # form of readLastSymbol's deliberate-loss semantics, reference
+        # ShMemSymBuff.hpp:300-331).
         self.last_frame_dirty = False
         # Writer-stream ordinal of the last delivered frame: derived from
         # symbols consumed + symbols dropped, so under catch-up skips and
@@ -118,17 +117,12 @@ class RingFeed:
         self._consumed_symbols = 0
         self._pending_resync = False
         self._just_resynced = False
-        # Optional consumer-preferred on-device shape for each frame plane
-        # (e.g. the fused kernel's [S, A, n1, n2]): reshaping the contiguous
-        # host buffer BEFORE device_put is free, while reshaping on-device
-        # costs a full layout re-tiling copy under TPU tiled layouts.
-        self.device_shape = tuple(device_shape) if device_shape else None
         # Optional custom device placement (host re/im planes -> CArray),
         # e.g. mesh-sharded device_put for a sharded consumer so the jitted
         # shard_map needn't reshard every frame.
         self.put_fn = put_fn
         # sc16-native mode: frames flow as planar int16 end to end (ring
-        # copy-out -> host buffer -> H2D -> in-kernel widen); requires the
+        # copy-out -> host buffer -> H2D -> in-jit widen); requires the
         # ring's sc16 batch read, which the per-symbol timer path lacks.
         self.int16 = int16
         if int16 and timer is not None:
@@ -334,9 +328,6 @@ class RingFeed:
                 # device_put may alias the host buffer, so force a real copy
                 # there (the buffer is recycled and would be overwritten).
                 re_h, im_h = buf.re, buf.im
-                if self.device_shape is not None:
-                    re_h = re_h.reshape(self.device_shape)
-                    im_h = im_h.reshape(self.device_shape)
                 if self.put_fn is not None:
                     frame = self.put_fn(re_h, im_h)
                 elif jax.default_backend() == "cpu":

@@ -3,8 +3,8 @@
 The native library (native/shm_ring/shm_ring.cpp) re-implements the
 reference's IPC transport (CSharedMemSimple + ShMemSymBuff protocol,
 ShMemSymBuff.hpp:193-484) with std::atomic correctness, timeouts, and a
-planar-deinterleaving read path that hands the TPU feed (re, im) float32
-planes directly.
+planar-deinterleaving read path that hands the device feed (re, im)
+float32 planes directly.
 
 The .so is built on demand with the repo's native/Makefile (g++ is part of
 the toolchain contract); no pip packages involved.
@@ -214,8 +214,8 @@ class SymbolRing:
 
         The producer analogue of ``read_frame_planar``: an ingest process
         extracts many symbols per radio recv buffer, and per-symbol
-        ``write`` calls pay ~30 us of foreign-call overhead each against
-        ~4 us of memcpy (docs/PERF.md "Host ring ingest profile").
+        ``write`` calls pay a foreign-call overhead each that outweighs
+        the symbol's memcpy.
 
         ``symbols`` is [n, rows, cols] complex64, or on an sc16 ring either
         [n, rows, 2*cols] int16 (interleaved IQ off the wire) or complex64
@@ -323,8 +323,8 @@ class SymbolRing:
                               ) -> Tuple[np.ndarray, np.ndarray]:
         """sc16-native batch read: n symbols deinterleaved into planar INT16
         planes [n, rows, cols-cp] without float conversion -- the
-        half-bandwidth feed for kernels that widen sc16 in VMEM
-        (ops/pallas_pipeline int16 input).  Only valid on sc16 rings."""
+        half-bandwidth feed for device bodies that widen sc16 in-jit
+        (ops/modulate.widen_sc16).  Only valid on sc16 rings."""
         if self.dtype != "sc16":
             raise RingError("read_frame_planar_i16 requires an sc16 ring")
         keep = self.cols - cp
@@ -385,8 +385,8 @@ class SymbolRing:
                              timeout: Optional[float] = None
                              ) -> Tuple[np.ndarray, np.ndarray]:
         """sc16-native per-symbol read: (re, im) INT16 [rows, cols-cp], no
-        float conversion -- the half-input-DMA feed for the per-symbol
-        fused kernel (which widens sc16 in VMEM at ts=1).  Mirrors the
+        float conversion -- the half-input-copy feed for the per-symbol
+        consumer (whose jitted body widens sc16 on the device).  Mirrors the
         reference per-symbol loop moving the ring's native element type
         untouched (ShMemSymBuff_cucomplex.hpp:256-257,356-393)."""
         return self._read_i16(self._lib.ring_read_next_i16, cp, timeout)

@@ -10,12 +10,14 @@ restore fails loudly instead of demodulating garbage.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
 
 from ..config import FrameConfig
-from ..ops.cplx import CArray
+
+if TYPE_CHECKING:  # JAX is imported only where an estimate is loaded
+    from ..ops.cplx import CArray
 
 _VERSION = 1
 
@@ -41,9 +43,12 @@ def save_estimate(path: str, cfg: FrameConfig, hconj: CArray,
         )
 
 
-def load_estimate(path: str, cfg: FrameConfig) -> Tuple[CArray, np.ndarray, int]:
+def load_estimate(path: str,
+                  cfg: FrameConfig) -> Tuple["CArray", np.ndarray, int]:
     """Restore (hconj, hsqrd, frame_index), validating geometry."""
     import jax.numpy as jnp
+
+    from ..ops.cplx import CArray
 
     with np.load(path) as z:
         if int(z["version"]) != _VERSION:

@@ -2,7 +2,7 @@
 
 Covers the reference's CPU-only TX path (cpuLS.hpp:391-529): ZF precoder per
 subcarrier, per-user modulation, cyclic-prefix insertion -- as batched jitted
-planar ops on the MXU instead of per-subcarrier cgemm/cgetri loops.
+planar ops instead of per-subcarrier cgemm/cgetri loops.
 """
 
 from __future__ import annotations

@@ -25,8 +25,9 @@ from ..ops import fft as fft_ops
 from ..ops import ls as ls_ops
 from ..ops import mrc as mrc_ops
 from ..ops.cplx import CArray
-from ..ops.modulate import drop_cyclic_prefix
+from ..ops.modulate import drop_cyclic_prefix, widen_sc16
 from ..utils.timing import PhaseTimer
+from .body import choose_body
 
 SymbolLike = Union[np.ndarray, CArray]
 
@@ -36,8 +37,6 @@ def _as_carray(x: SymbolLike) -> CArray:
 
 
 def _estimate_symbol_fn(pilot: CArray, x_full: CArray, *, cp: int, fft_impl: str):
-    from ..ops.fastpath import widen_sc16
-
     fft = fft_ops.get_fft(fft_impl)
     pilot = widen_sc16(drop_cyclic_prefix(pilot, cp))   # int16 widens in-jit
     return ls_ops.estimate_channel_full(fft(pilot), x_full)
@@ -45,34 +44,12 @@ def _estimate_symbol_fn(pilot: CArray, x_full: CArray, *, cp: int, fft_impl: str
 
 def _demod_symbol_fn(sym: CArray, hconj: CArray, hsqrd: jnp.ndarray,
                      *, cp: int, fft_impl: str) -> CArray:
-    from ..ops.fastpath import widen_sc16
-
     fft = fft_ops.get_fft(fft_impl)
     # sc16-native symbols transfer as int16 (half the H2D bytes) and widen
     # on device; float symbols pass through.
     yf = fft(widen_sc16(drop_cyclic_prefix(sym, cp)))   # [A, F]
     eq = mrc_ops.mrc_combine(yf[None], hconj, hsqrd)
     return mrc_ops.finalize(eq)[0]                 # [F-1]
-
-
-def _estimate_symbol_fused_fn(pilot: CArray, x_perm: CArray, *, cp: int):
-    """LS estimate in fastpath permuted order (fused-kernel streaming mode)."""
-    from ..ops import fastpath
-
-    yp = fastpath.fft_permuted(
-        fastpath.widen_sc16(drop_cyclic_prefix(pilot, cp)))
-    h, hsq = fastpath.ls_permuted(yp, x_perm)
-    return h, 1.0 / hsq
-
-
-def _demod_symbol_fused_fn(sym: CArray, h: CArray, hsqinv: jnp.ndarray,
-                           *, cp: int) -> CArray:
-    """One data symbol through the whole-pipeline Pallas kernel."""
-    from ..ops import pallas_pipeline
-
-    y = drop_cyclic_prefix(sym, cp)
-    eq = pallas_pipeline.fused_pipeline(y[None], h.re, h.im, hsqinv, ts=1)
-    return pallas_pipeline.to_reference_order(eq, y.shape[-1])[0]
 
 
 class StreamingDemodulator:
@@ -86,46 +63,20 @@ class StreamingDemodulator:
 
     def __init__(self, cfg: FrameConfig, pilot_x: np.ndarray,
                  fft_impl: Optional[str] = None,
-                 timer: Optional[PhaseTimer] = None,
-                 pipeline: str = "composed"):
-        """pipeline: 'composed' (default; plain jitted ops, any geometry) or
-        'fused' (the whole-pipeline Pallas kernel per symbol; falls back to
-        'composed' when the FFT size has no (2^k, 128) split or the backend
-        needs the complex-dtype path)."""
+                 timer: Optional[PhaseTimer] = None):
+        """Plain jitted ops (the composed body of ``body.choose_body``) for
+        any geometry; ``fft_impl`` defaults to the platform's FFT."""
         cfg.validate()
-        if pipeline not in ("composed", "fused"):
-            raise ValueError(f"unknown pipeline {pipeline!r}")
+        _, fft_impl = choose_body(None, fft_impl)
         self.cfg = cfg
-        self.fft_impl = fft_impl or fft_ops.default_impl()
+        self.fft_impl = fft_impl
         self.x_full = ls_ops.pad_pilot(pilot_x)
         self.timer = timer
         self._hconj: Optional[CArray] = None
         self._hsqrd = None
-        if pipeline == "fused":
-            from ..ops.pallas_pipeline import supports_fused, warn_fused_fallback
-            if not supports_fused(cfg.fft_size):
-                warn_fused_fallback(cfg.fft_size, "StreamingDemodulator",
-                                    to="composed")
-                pipeline = "composed"
-            elif self.fft_impl == "xla":
-                import warnings
-                warnings.warn(
-                    "StreamingDemodulator: fused kernel unavailable on the "
-                    "complex-dtype ('xla' fft) path; using 'composed'",
-                    RuntimeWarning, stacklevel=2)
-                pipeline = "composed"
-        self.pipeline = pipeline
-        if pipeline == "fused":
-            from ..ops import fastpath
-            self.x_perm = fastpath.prepare_pilot_fast(pilot_x, cfg.fft_size)
-            self._estimate = jax.jit(functools.partial(
-                _estimate_symbol_fused_fn, cp=cfg.cyclic_prefix))
-            self._demod = jax.jit(functools.partial(
-                _demod_symbol_fused_fn, cp=cfg.cyclic_prefix))
-        else:
-            kw = dict(cp=cfg.cyclic_prefix, fft_impl=self.fft_impl)
-            self._estimate = jax.jit(functools.partial(_estimate_symbol_fn, **kw))
-            self._demod = jax.jit(functools.partial(_demod_symbol_fn, **kw))
+        kw = dict(cp=cfg.cyclic_prefix, fft_impl=self.fft_impl)
+        self._estimate = jax.jit(functools.partial(_estimate_symbol_fn, **kw))
+        self._demod = jax.jit(functools.partial(_demod_symbol_fn, **kw))
 
     @property
     def has_estimate(self) -> bool:
@@ -134,18 +85,14 @@ class StreamingDemodulator:
     def push_pilot(self, pilot_sym: SymbolLike, slot: int = 0) -> None:
         """Refresh the channel estimate from a frame's pilot symbol [A, F+cp].
 
-        In 'fused' mode the stored estimate is (h, 1/sum|h|^2) in fastpath
-        permuted order (the kernel's input layout); in 'composed' mode it is
-        (hconj, sum|h|^2) in true frequency order.  save_state/resume
-        convert so checkpoints are interchangeable between modes."""
+        The stored estimate is (hconj, sum|h|^2) in true frequency order."""
         c = _as_carray(pilot_sym)
-        ref = self.x_perm if self.pipeline == "fused" else self.x_full
         if self.timer:
             with self.timer.phase("chanest", slot):
-                self._hconj, self._hsqrd = self._estimate(c, ref)
+                self._hconj, self._hsqrd = self._estimate(c, self.x_full)
                 jax.block_until_ready(self._hsqrd)
         else:
-            self._hconj, self._hsqrd = self._estimate(c, ref)
+            self._hconj, self._hsqrd = self._estimate(c, self.x_full)
 
     def push_symbol(self, data_sym: SymbolLike, slot: int = 1) -> CArray:
         """Demod one data symbol [A, F+cp] -> [F-1] with the current estimate.
@@ -171,7 +118,7 @@ class StreamingDemodulator:
 
         The one-deep streaming pipeline (demod_app._run_per_symbol) uses
         this to overlap the RING READ of symbol k+1 with the device demod
-        of symbol k -- the TPU analogue of the reference's per-symbol
+        of symbol k -- the analogue of the reference's per-symbol
         cudaMemcpyAsync streams (ShMemSymBuff_cucomplex.hpp:356-393,
         gpuLS.cu:410-473).  The caller owns the wait; time THAT wait (not
         the dispatch) to keep the decode column honest."""
@@ -181,40 +128,20 @@ class StreamingDemodulator:
         return self._demod(_as_carray(data_sym), self._hconj, self._hsqrd)
 
     # -- state persistence (checkpoint/resume; io/state.py) ------------------
-    def _perm_tables(self):
-        from ..ops.fastpath import _fast_perm_tables
-        return _fast_perm_tables(self.cfg.fft_size)
-
     def save_state(self, path: str, frame_index: int = 0) -> None:
-        """Persist the current channel estimate for restart-resume.
-
-        Always written in the portable true-frequency (hconj, sum|h|^2)
-        layout, whatever the runtime pipeline."""
+        """Persist the current channel estimate for restart-resume, in the
+        portable true-frequency (hconj, sum|h|^2) layout."""
         if self._hconj is None:
             raise RuntimeError("no channel estimate to save")
         from ..io.state import save_estimate
 
-        if self.pipeline == "fused":
-            _, inv = self._perm_tables()
-            h = self._hconj
-            hconj = CArray(np.asarray(h.re)[:, inv], -np.asarray(h.im)[:, inv])
-            hsqrd = 1.0 / np.asarray(self._hsqrd)[inv]
-            save_estimate(path, self.cfg, hconj, hsqrd, frame_index)
-        else:
-            save_estimate(path, self.cfg, self._hconj, self._hsqrd, frame_index)
+        save_estimate(path, self.cfg, self._hconj, self._hsqrd, frame_index)
 
     def resume(self, path: str) -> int:
         """Restore a saved estimate; returns the stored frame index."""
         from ..io.state import load_estimate
 
-        hconj, hsqrd, idx = load_estimate(path, self.cfg)
-        if self.pipeline == "fused":
-            perm, _ = self._perm_tables()
-            self._hconj = CArray(jnp.asarray(np.asarray(hconj.re)[:, perm]),
-                                 jnp.asarray(-np.asarray(hconj.im)[:, perm]))
-            self._hsqrd = jnp.asarray(1.0 / np.asarray(hsqrd)[perm])
-        else:
-            self._hconj, self._hsqrd = hconj, hsqrd
+        self._hconj, self._hsqrd, idx = load_estimate(path, self.cfg)
         return idx
 
     def warmup(self, int16: bool = False) -> None:

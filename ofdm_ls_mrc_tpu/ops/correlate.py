@@ -1,17 +1,17 @@
-"""FFT-based PN correlation on TPU: overlap-save, block-sharded with ppermute.
+"""FFT-based PN correlation: overlap-save, block-sharded with ppermute.
 
 The reference finds the frame start with an O(N*P) sliding dot product on the
 host CPU (rx_and_corr.cpp:332-360).  Here the same correlation --
 ``corr[i] = sum_j pn[j] * x[i+j]`` (NOT conjugated, matching line 344) -- is
-an overlap-save fast convolution: 1024-point MXU FFTs of overlapping blocks,
-one elementwise product with the precomputed kernel spectrum, inverse FFT,
-overlap discard.  ~40x fewer flops than the sliding dot at P = 255 and every
-flop lands on the MXU.
+an overlap-save fast convolution: 1024-point FFTs of overlapping blocks (the
+platform's FFT, ``fft.default_impl``: cuFFT on the GPU), one elementwise
+product with the precomputed kernel spectrum, inverse FFT, overlap discard.
+~40x fewer flops than the sliding dot at P = 255.
 
 The sharded variant is the framework's sequence-parallel showcase: the
 correlation index axis shards contiguously over the mesh, and each shard
 fetches the (P-1)-sample halo it needs from its RIGHT neighbor with ONE
-``lax.ppermute`` -- the overlap-state-over-ICI pattern called out in
+``lax.ppermute`` -- the overlap-state-between-devices pattern called out in
 SURVEY.md section 5 for state that crosses time-block boundaries.
 """
 
@@ -25,9 +25,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from .cplx import CArray
-from .fft import fft_four_step, ifft_four_step
+from .fft import default_impl, get_fft, get_ifft
 
-_BLOCK_FFT = 1024  # MXU-aligned overlap-save FFT size
+_BLOCK_FFT = 1024  # overlap-save FFT size
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,10 +77,11 @@ def pn_correlate(x: CArray, pn: np.ndarray) -> jnp.ndarray:
     take = functools.partial(jnp.take, indices=jnp.asarray(idx), mode="fill",
                              fill_value=0.0)
     blocks = CArray(take(x.re), take(x.im))            # [nblocks, F]
-    xf = fft_four_step(blocks)
+    impl = default_impl()
+    xf = get_fft(impl)(blocks)
     prod = CArray(xf.re * gf.re - xf.im * gf.im,
                   xf.re * gf.im + xf.im * gf.re)
-    conv = ifft_four_step(prod)                        # unnormalized: F * ifft
+    conv = get_ifft(impl)(prod)                        # unnormalized: F * ifft
     keep = conv[..., p - 1:]                           # [nblocks, hop]
     mags = jnp.sqrt(keep.re ** 2 + keep.im ** 2) / (p * _BLOCK_FFT)
     return mags.reshape(-1)[: n - p + 1]

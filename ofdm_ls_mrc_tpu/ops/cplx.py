@@ -1,10 +1,10 @@
-"""Planar complex arithmetic: the TPU-native complex number representation.
+"""Planar complex arithmetic: the framework's complex number representation.
 
-TPU compute units (MXU/VPU) are real-valued, and this backend exposes no
-complex dtype at all -- so the framework represents every complex tensor as a
-``CArray``: a pytree of two same-shape float32 arrays (re, im).  All hot-path
-math is spelled out as real mul/add, which is exactly what XLA would emit for
-complex64 anyway and what Pallas TPU kernels require (planar re/im layout).
+Every complex tensor is a ``CArray``: a pytree of two same-shape arrays
+(re, im), float32 on the device (int16 for sc16 wire-format input).  All
+hot-path math is spelled out as real mul/add, which is exactly what XLA
+emits for complex64 anyway; the FFT itself runs on complex64
+(``ops.fft.fft_xla``: cuFFT on the GPU).
 
 The reference stores interleaved complex float (cuFloatComplex / complexF,
 ShMemSymBuff.hpp:86-89); deinterleaving happens once at the host boundary
@@ -150,7 +150,7 @@ def csum(a: CArray, axis, keepdims: bool = False) -> CArray:
 
 
 def cmatmul(a: CArray, b: CArray, precision=jax.lax.Precision.HIGHEST) -> CArray:
-    """Complex matmul as 4 real MXU matmuls (3-mult Karatsuba not worth the
+    """Complex matmul as 4 real matmuls (3-mult Karatsuba not worth the
     extra adds at these sizes; XLA fuses the 4-matmul form cleanly)."""
     rr = jnp.matmul(a.re, b.re, precision=precision)
     ii = jnp.matmul(a.im, b.im, precision=precision)

@@ -1,7 +1,8 @@
-"""Speed-of-light XLA demod path: transpose-free four-step FFT + LS + MRC.
+"""DFT-as-GEMM demod path: transpose-free four-step FFT + LS + MRC.
 
-Three optimizations over the naive composition (ops/fft.fft_four_step +
-ops/ls + ops/mrc), worth ~35% end-to-end on v5e:
+An explicit alternative to the default composed path (``jnp.fft`` + ops/ls +
+ops/mrc), selected with ``pipeline='fast'``.  Three ideas over the naive
+GEMM composition (ops/fft.fft_four_step + ops/ls + ops/mrc):
 
 1. **Permuted-order pipeline.**  The four-step FFT's natural output order is
    [k1, k2] (k = N1*k2 + k1).  Instead of transposing back per symbol, the
@@ -11,15 +12,16 @@ ops/ls + ops/mrc), worth ~35% end-to-end on v5e:
    output ifftshift (shiftOneRow, cpuLS.hpp:368) into a single static take.
 
 2. **Transpose-free einsums.**  Stage 1 uses '...ij,ik->...kj' (contraction
-   on the sublane-major dim, output layout matching stage 2's input) and
+   on the second-minor dim, output layout matching stage 2's input) and
    stage 2 '...jk,jm->...km'; neither needs a layout change.
 
 3. **Karatsuba complex GEMMs.**  Each complex matmul is 3 real GEMMs
    (t1 = (xr+xi) Wr; t2 = xr (Wi-Wr); t3 = xi (Wr+Wi)) instead of 4 --
-   a 25% MXU saving on the dominant stage-1 contraction.
+   a 25% saving on the dominant stage-1 contraction.
 
 Numerics: DFT-matrix combinations (Wi-Wr etc.) are precomputed in fp64 on
-the host, so Karatsuba adds no rounding beyond the GEMM passes themselves.
+the host, so Karatsuba adds no rounding beyond the GEMM passes themselves,
+which run at ``fft.PRECISION`` (HIGHEST: no TF32 on the GPU).
 """
 
 from __future__ import annotations
@@ -33,13 +35,12 @@ import numpy as np
 
 from .cplx import CArray
 from .fft import _split, _twiddle
+from .modulate import drop_cyclic_prefix, widen_sc16
 
 
 def _fast_split(n: int) -> Tuple[int, int]:
     """(n1, n2) with n2 = 128: keeps every intermediate's minor dim 128-wide
-    (full vreg lanes; the (128, 8) order leaves an 8-wide minor dim that
-    wastes 15/16 of each vector register) and makes stage 2 a standard
-    lane-contracting GEMM."""
+    and makes stage 2 a standard minor-dim-contracting GEMM."""
     if n % 128 == 0 and n // 128 >= 2:
         return n // 128, 128
     return _split(n)
@@ -71,13 +72,6 @@ def _karatsuba_consts(n: int, sign: float):
 def _cgemm_kara(xre, xim, consts, spec: str, precision) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Karatsuba complex GEMM: 3 real einsums instead of 4."""
     wr, wi_m_wr, wr_p_wi = (jnp.asarray(c) for c in consts)
-    if not jnp.issubdtype(jnp.result_type(xre), jnp.floating):
-        # sc16-native planar int16 reaching the XLA fastpath (e.g. via a
-        # fused->fast fallback): widen BEFORE the Karatsuba pre-sum --
-        # xre + xim of two near-full-scale int16 samples wraps at +/-32767.
-        # The sc16 full-scale factor cancels in LS/MRC downstream.
-        xre = xre.astype(jnp.float32)
-        xim = xim.astype(jnp.float32)
     t1 = jnp.einsum(spec, xre + xim, wr, precision=precision)
     t2 = jnp.einsum(spec, xre, wi_m_wr, precision=precision)
     t3 = jnp.einsum(spec, xim, wr_p_wi, precision=precision)
@@ -88,17 +82,17 @@ def stage1_twiddled(x: CArray, precision=None) -> CArray:
     """First four-step stage + twiddle, output [.., k1, i2] flattened to [.., F].
 
     Natural k1 order; feed to the stage-2 GEMM (fft_permuted's second
-    einsum; the Pallas kernel in ops/pallas_pipeline runs its own stage 1).
+    einsum).
     """
     from . import fft as fft_mod
 
-    precision = precision or fft_mod._PRECISION
+    precision = precision or fft_mod.PRECISION
     n = x.shape[-1]
     n1, n2 = _fast_split(n)
     xs = x.reshape(x.shape[:-1] + (n1, n2))  # [.., i1, i2], minor dim = n2
 
     # Stage 1: contract i1 (dim -2, size n1 small) -> [.., k1, i2]; output
-    # minor dim stays n2 = 128 (full vreg lanes throughout).
+    # minor dim stays n2 = 128.
     are, aim = _cgemm_kara(xs.re, xs.im, _karatsuba_consts(n1, -1.0),
                            "...ij,ik->...kj", precision)
     # Twiddle in the natural [k1, i2] layout.
@@ -115,16 +109,16 @@ def fft_permuted(x: CArray, precision=None) -> CArray:
 
     Input  [..., F]; output [..., F] where position k1*N2+k2 holds true
     frequency N1*k2+k1 under the _fast_split factorization (perm tables in
-    _fast_perm_tables; NOT pallas_mrc._perm_tables, which uses fft._split).
+    _fast_perm_tables).
     """
     from . import fft as fft_mod
 
-    precision = precision or fft_mod._PRECISION
+    precision = precision or fft_mod.PRECISION
     n = x.shape[-1]
     n1, n2 = _fast_split(n)
     b = stage1_twiddled(x, precision)
     bs = b.reshape(b.shape[:-1] + (n1, n2))
-    # Stage 2: contract i2 (the LANE dim -- a standard GEMM) -> [.., k1, k2].
+    # Stage 2: contract i2 (the minor dim -- a standard GEMM) -> [.., k1, k2].
     cre, cim = _cgemm_kara(bs.re, bs.im, _karatsuba_consts(n2, -1.0),
                            "...kj,jm->...km", precision)
     return CArray(cre.reshape(x.shape), cim.reshape(x.shape))
@@ -160,24 +154,12 @@ def ls_permuted(pilot_spec: CArray, x_perm: CArray) -> Tuple[CArray, jnp.ndarray
       (h, hsq): planar estimate [A, F] and sum_a |h|^2 [F].  The DC bin
       needs no masking: x_perm holds 1 at inv[0] and the edge gather never
       reads that position.  This is THE one definition shared by every
-      permuted-order pipeline (fast, fused, sharded, streaming).
+      permuted-order pipeline (fast, sharded, streaming).
     """
     denom = 1.0 / x_perm.abs2()
     hre = (pilot_spec.re * x_perm.re + pilot_spec.im * x_perm.im) * denom
     him = (pilot_spec.im * x_perm.re - pilot_spec.re * x_perm.im) * denom
     return CArray(hre, him), jnp.sum(hre * hre + him * him, axis=0)
-
-
-def widen_sc16(x: CArray) -> CArray:
-    """Planar int16 -> full-scale float32; float inputs pass through.
-
-    The fused kernel widens its data rows in VMEM; this covers the
-    XLA-side pilot leg of sc16-native flows."""
-    if jnp.issubdtype(jnp.result_type(x.re), jnp.integer):
-        from ..golden.io import SC16_FULL_SCALE
-        return CArray(x.re.astype(jnp.float32) / SC16_FULL_SCALE,
-                      x.im.astype(jnp.float32) / SC16_FULL_SCALE)
-    return x
 
 
 def demod_frame_fast(frame: CArray, x_full_perm: CArray, *, cp: int,
@@ -193,7 +175,7 @@ def demod_frame_fast(frame: CArray, x_full_perm: CArray, *, cp: int,
       [S-1, F-1] planar demod output, bit-compatible with the reference
       layout (DC dropped, ifftshift applied).
     """
-    y = frame if cp == 0 else frame[..., cp:]
+    y = widen_sc16(drop_cyclic_prefix(frame, cp))
     yf = fft_permuted(y, precision)                  # [S, A, F] permuted
     h, hsqrd = ls_permuted(yf[0], x_full_perm)
     hre, him = h.re, h.im

@@ -1,18 +1,15 @@
-"""Batched FFTs for the OFDM pipeline, TPU-first and complex-free.
+"""Batched FFTs for the OFDM pipeline over planar ``CArray`` tensors.
 
 The reference re-creates FFTW plans per call (cpuLS.hpp:165-174) and cuFFT
 plans per symbol (gpuLS.cu:441-445).  Here every FFT is a traced jitted op
-over the whole ``[symbols, antennas, fft]`` batch -- and, because TPUs have
-no complex ALU (this backend exposes no complex dtype at all), every
-implementation works on planar (re, im) float32 ``CArray`` tensors:
+over the whole ``[symbols, antennas, fft]`` batch:
 
-* ``matmul``    -- one dense DFT as 4 real MXU GEMMs.  For OFDM-sized
-                   transforms the N^2 FLOPs are cheap on a 128x128 systolic
-                   array and the whole transform is one fused GEMM group.
+* ``xla``       -- ``jnp.fft`` on complex64: cuFFT on the GPU, XLA's own FFT
+                   on the CPU.  The default on every supported platform.
+* ``matmul``    -- one dense DFT as 4 real GEMMs (explicit option).
 * ``four_step`` -- Cooley-Tukey N = N1*N2: two small GEMM groups plus a
-                   planar twiddle multiply; O(N*(N1+N2)) FLOPs, still all-MXU.
-* ``xla``       -- jnp.fft on complex64; only valid on backends with complex
-                   support (CPU tests), kept as the cross-check oracle.
+                   planar twiddle multiply; O(N*(N1+N2)) FLOPs (explicit
+                   option).
 
 All paths compute the unnormalized forward DFT (== FFTW_FORWARD == np.fft.fft);
 inverses are the unnormalized backward DFT (== FFTW_BACKWARD == np.fft.ifft*N,
@@ -30,25 +27,10 @@ import numpy as np
 
 from .cplx import CArray, ceinsum, cmatmul, from_const
 
-# Matmul precision for the DFT stages.  HIGH (3-pass bf16) keeps the demod
-# error ~3e-5 relative -- far below any radio EVM floor -- at ~4x the speed
-# of HIGHEST (6-pass); CPU backends compute true fp32 regardless.  Switch
-# with set_precision() for bit-tight golden comparisons (HIGHEST) or raw
-# speed (DEFAULT, ~1e-2 error: fine for QPSK/16QAM at realistic SNR).
-_PRECISION = jax.lax.Precision.HIGH
-
-
-def set_precision(name: str) -> None:
-    """Set DFT matmul precision: 'default' | 'high' | 'highest'.
-
-    Read at TRACE time: only functions traced afterwards see the change.
-    Already-constructed receivers (whose __init__ jitted their pipelines)
-    and already-compiled shapes keep their old precision -- construct
-    receivers AFTER calling this (bench.py does)."""
-    global _PRECISION
-    _PRECISION = {"default": jax.lax.Precision.DEFAULT,
-                  "high": jax.lax.Precision.HIGH,
-                  "highest": jax.lax.Precision.HIGHEST}[name.lower()]
+# Matmul precision for the DFT-as-GEMM stages.  On the GPU a float32 matmul
+# at any lower precision may run in TF32 (about three decimal digits), which
+# would break the receiver's fp32-grade contract against golden/dsp.py.
+PRECISION = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,11 +49,8 @@ def _twiddle(n1: int, n2: int, sign: float) -> np.ndarray:
 def _split(n: int) -> tuple[int, int]:
     """Factor n = n1*n2 for the four-step decomposition.
 
-    MXU-aligned rule: a 128-wide first-stage contraction saturates the
-    128x128 systolic array, so prefer n1 = 128 whenever n divides -- measured
-    4-6x faster than the sqrt-balanced (32, 32) split for n = 1024 on v5e
-    despite the higher FLOP count.  Falls back to the balanced split for
-    small n.
+    Prefers n1 = 128 whenever n divides (a 128-wide first-stage contraction
+    keeps each GEMM large); falls back to the balanced split for small n.
     """
     if n % 128 == 0 and n // 128 >= 2:
         return 128, n // 128
@@ -82,14 +61,14 @@ def _split(n: int) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Planar implementations (TPU path)
+# DFT-as-GEMM implementations
 # ---------------------------------------------------------------------------
 
 def fft_matmul(x: CArray, sign: float = -1.0) -> CArray:
     """Dense DFT as planar matmul: X = x @ W, W[n,k] = exp(sign*2pi i nk/N)."""
     n = x.shape[-1]
     w = from_const(_dft_matrix(n, sign))
-    return cmatmul(x, w, precision=_PRECISION)
+    return cmatmul(x, w, precision=PRECISION)
 
 
 def ifft_matmul(x: CArray) -> CArray:
@@ -97,7 +76,7 @@ def ifft_matmul(x: CArray) -> CArray:
 
 
 def fft_four_step(x: CArray, sign: float = -1.0) -> CArray:
-    """Four-step Cooley-Tukey FFT, planar, all-MXU.
+    """Four-step Cooley-Tukey FFT, planar, as two GEMM stages.
 
     With n = n1*n2, input index n = n2*i1 + i2 and output k = n1*k2 + k1:
       A[.., k1, i2] = sum_i1 x[.., i1, i2] W_{n1}^{i1 k1}     (GEMM over i1)
@@ -115,7 +94,7 @@ def fft_four_step(x: CArray, sign: float = -1.0) -> CArray:
     xs = x.reshape(x.shape[:-1] + (n1, n2))
 
     def stage(a: CArray, d: CArray, spec: str) -> CArray:
-        return ceinsum(spec, a, d, precision=_PRECISION)
+        return ceinsum(spec, a, d, precision=PRECISION)
 
     a = stage(xs, d1, "...ij,ik->...kj")   # contract over i1 -> [.., k1, i2]
     b = a * tw                              # planar twiddle
@@ -128,11 +107,11 @@ def ifft_four_step(x: CArray) -> CArray:
 
 
 # ---------------------------------------------------------------------------
-# Complex-dtype implementation (CPU oracle path)
+# Complex-dtype implementation (cuFFT on the GPU; the default)
 # ---------------------------------------------------------------------------
 
 def fft_xla(x: CArray) -> CArray:
-    """jnp.fft.fft on complex64 -- backends with complex support only."""
+    """jnp.fft.fft on complex64 (float planes; widen sc16 first)."""
     xc = jax.lax.complex(x.re, x.im)
     y = jnp.fft.fft(xc, axis=-1)
     return CArray(jnp.real(y).astype(jnp.float32), jnp.imag(y).astype(jnp.float32))
@@ -165,8 +144,16 @@ def get_ifft(impl: str = "four_step") -> Callable[[CArray], CArray]:
     return IFFT_IMPLS[impl]
 
 
-def default_impl() -> str:
-    """Pick the FFT implementation for the current default backend: planar
-    MXU paths on TPU (no complex dtype there), XLA's native FFT elsewhere."""
-    platform = jax.default_backend()
-    return "four_step" if platform not in ("cpu", "gpu") else "xla"
+PLATFORMS = ("cpu", "gpu")
+
+
+def default_impl(platform: str | None = None) -> str:
+    """The FFT implementation for ``platform`` (default: JAX's backend).
+
+    ``jnp.fft`` everywhere the receiver runs; a platform without a tested
+    device path is an error, never a silent fallback."""
+    platform = platform or jax.default_backend()
+    if platform not in PLATFORMS:
+        raise ValueError(f"no device path for platform {platform!r}; "
+                         f"supported: {', '.join(PLATFORMS)}")
+    return "xla"

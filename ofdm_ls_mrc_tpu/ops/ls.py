@@ -1,8 +1,8 @@
 """Least-Squares channel estimation on full-width (DC-masked) planar tensors.
 
-TPU layout decision: the reference drops the DC bin immediately, making every
-hot tensor 1023 wide (gpuLS.cuh:67-70) -- hostile to the TPU's 8x128 tiling.
-Here all hot ops run on the full ``fft_size`` grid with the DC bin masked
+Layout decision: the reference drops the DC bin immediately, making every
+hot tensor 1023 wide (gpuLS.cuh:67-70).  Here all hot ops run on the full
+``fft_size`` grid with the DC bin masked
 (hconj[...,0] = 0, hsqrd[0] = 1), and the 1023-wide view is sliced only at
 the pipeline edge (see ``finalize`` in mrc.py).
 

@@ -29,6 +29,19 @@ def drop_cyclic_prefix(sym: CArray, cp: int) -> CArray:
     return sym[..., cp:]
 
 
+def widen_sc16(x: CArray) -> CArray:
+    """Planar int16 (sc16 wire format) -> full-scale float32; float planes
+    pass through.
+
+    Called inside the jitted bodies, so the host-to-device copy stays at
+    int16 bytes and the FFT sees float32."""
+    if jnp.issubdtype(jnp.result_type(x.re), jnp.integer):
+        from ..golden.io import SC16_FULL_SCALE
+        return CArray(x.re.astype(jnp.float32) / SC16_FULL_SCALE,
+                      x.im.astype(jnp.float32) / SC16_FULL_SCALE)
+    return x
+
+
 def modulate(data: CArray, cp: int = 0, impl: str = "four_step") -> CArray:
     """Batch OFDM modulator, faithful to modOneSymbol (cpuLS.hpp:492-529).
 

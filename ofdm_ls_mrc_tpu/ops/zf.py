@@ -1,4 +1,4 @@
-"""Multi-user zero-forcing precoding as batched MXU linear algebra, planar.
+"""Multi-user zero-forcing precoding as batched planar linear algebra.
 
 Math per reference ``createZeroForcingMatrix`` (cpuLS.hpp:415-447): per
 subcarrier, W = H^H (H H^H)^{-1} -- the Moore-Penrose right-inverse of the
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from .cplx import CArray, ceinsum
 
+# No TF32 on the GPU: the Gram matrix and the precoder keep fp32 accuracy.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

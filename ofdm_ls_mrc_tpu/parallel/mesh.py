@@ -5,11 +5,11 @@ logical mesh:
 
 * ``ant``  -- the antenna axis.  The reference puts one CUDA block-row per
   antenna and tree-reduces over them in shared memory (gpuLS.cu:52-53,
-  198-203,247-252); here antenna shards live on different chips and the MRC
-  reduction is a ``psum`` riding ICI.
+  198-203,247-252); here antenna shards live on different cards and the MRC
+  reduction is a ``psum`` (NCCL over NVLink on one host).
 * ``time`` -- the OFDM symbol axis.  The reference batches symbols into a
   3-D grid z-axis (gpuLS.cu:740-750); here time-blocks are embarrassingly
-  parallel data shards (DCN-friendly across hosts).
+  parallel data shards (no collectives, so cheap across hosts).
 """
 
 from __future__ import annotations
@@ -28,9 +28,8 @@ def make_mesh(ant_shards: int = 1, time_shards: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build an (ant, time) mesh over the given (or all) devices.
 
-    The ``ant`` axis is placed first (innermost ICI neighbors on a real pod
-    slice) because the MRC psum is the latency-critical collective; the
-    ``time`` axis carries no collectives.
+    The ``ant`` axis is placed first because the MRC psum is the
+    latency-critical collective; the ``time`` axis carries no collectives.
     """
     devs = list(devices) if devices is not None else jax.devices()
     need = ant_shards * time_shards

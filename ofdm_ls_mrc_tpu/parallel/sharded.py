@@ -1,5 +1,5 @@
-"""Sharded uplink pipeline: antenna-sharded MRC with psum over ICI,
-time-sharded symbol blocks.
+"""Sharded uplink pipeline: antenna-sharded MRC with one psum, time-sharded
+symbol blocks.
 
 This replaces the reference's intra-GPU reductions (shared-memory tree sums
 over antennas, gpuLS.cu:198-203,247-252) with XLA collectives over a device
@@ -7,7 +7,8 @@ mesh: each ``ant`` shard FFTs its local antennas, forms its local LS estimate
 and partial MRC numerator, and a single fused ``psum`` over the ``ant`` axis
 combines (numerator_re, numerator_im, |H|^2) in one reduced payload -- the
 "combined payload" design from SURVEY.md section 7 that halves the
-collective count vs reducing numerator and denominator separately.
+collective count vs reducing numerator and denominator separately.  On
+several GPUs XLA hands that psum to NCCL.
 
 The ``time`` axis is collective-free data parallelism over symbol blocks.
 """
@@ -20,7 +21,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import FrameConfig
 from ..ops import fastpath
@@ -28,15 +29,16 @@ from ..ops import fft as fft_ops
 from ..ops import ls as ls_ops
 from ..ops import mrc as mrc_ops
 from ..ops.cplx import CArray
-from ..ops.modulate import drop_cyclic_prefix
-from .mesh import ANT_AXIS, TIME_AXIS, frame_sharding, make_mesh, pilot_sharding
+from ..models.body import choose_body
+from ..ops.modulate import drop_cyclic_prefix, widen_sc16
+from .mesh import ANT_AXIS, TIME_AXIS, frame_sharding, pilot_sharding
 
 
 def _sharded_demod_local(pilot: CArray, data: CArray, x_full: CArray,
                          *, cp: int, fft_impl: str) -> CArray:
     """Per-shard body run under shard_map.
 
-    Args (local shard views):
+    Args (local shard views; float32 or sc16 int16 planes):
       pilot:  [A_local, F+cp]
       data:   [S_local, A_local, F+cp]
       x_full: [F] (replicated)
@@ -45,10 +47,10 @@ def _sharded_demod_local(pilot: CArray, data: CArray, x_full: CArray,
       [S_local, F-1] demodulated block, replicated over ``ant``.
     """
     fft = fft_ops.get_fft(fft_impl)
-    yp = fft(drop_cyclic_prefix(pilot, cp))            # [A_l, F]
+    yp = fft(widen_sc16(drop_cyclic_prefix(pilot, cp)))   # [A_l, F]
     hconj, hsqrd_local = ls_ops.estimate_channel_full(yp, x_full)
 
-    yd = fft(drop_cyclic_prefix(data, cp))             # [S_l, A_l, F]
+    yd = fft(widen_sc16(drop_cyclic_prefix(data, cp)))    # [S_l, A_l, F]
     num_local = mrc_ops.mrc_numerator(yd, hconj)       # [S_l, F]
 
     # One fused all-reduce over the antenna mesh axis: numerator (re, im)
@@ -70,11 +72,11 @@ def _sharded_demod_local_fast(pilot: CArray, data: CArray, x_perm: CArray,
     transpose-free permuted-order pipeline (ops/fastpath) per shard; the
     edge gather to reference order happens after the psum.
     """
-    yp = fastpath.fft_permuted(drop_cyclic_prefix(pilot, cp))   # [A_l, F] perm
-    h, hsq_local = fastpath.ls_permuted(yp, x_perm)
+    yp = fastpath.fft_permuted(widen_sc16(drop_cyclic_prefix(pilot, cp)))
+    h, hsq_local = fastpath.ls_permuted(yp, x_perm)              # perm order
     hre, him = h.re, h.im
 
-    yd = fastpath.fft_permuted(drop_cyclic_prefix(data, cp))    # [S_l, A_l, F]
+    yd = fastpath.fft_permuted(widen_sc16(drop_cyclic_prefix(data, cp)))
     num_re_l = jnp.sum(yd.re * hre[None] + yd.im * him[None], axis=1)
     num_im_l = jnp.sum(yd.im * hre[None] - yd.re * him[None], axis=1)
 
@@ -84,98 +86,6 @@ def _sharded_demod_local_fast(pilot: CArray, data: CArray, x_perm: CArray,
     f = data.shape[-1] - cp
     idx = jnp.asarray(fastpath._edge_gather(f))
     return CArray((num_re * inv[None])[:, idx], (num_im * inv[None])[:, idx])
-
-
-def _sharded_demod_local_fused(pilot: CArray, data: CArray, x_perm: CArray,
-                               *, cp: int, exact: bool = True) -> CArray:
-    """Fused-kernel shard body: the whole-pipeline Pallas kernel runs per
-    antenna shard with normalization deferred (hsqinv = 1) so the MRC
-    numerator and the local |H|^2 ride ONE fused psum over ``ant``; the
-    divide and the edge gather to reference order happen after.
-
-    Accepts sc16-native planar int16 shards (the kernel widens in VMEM;
-    the pilot row widens here for the XLA estimate path), and KERNEL-NATIVE
-    4-D pre-shaped inputs (pilot [A_l, n1, n2], data [S_l, A_l, n1, n2],
-    CP-free): arrays PLACED in that layout skip the per-frame operand
-    re-tiling copy that the [.., F] -> [.., n1, n2] reshape costs under TPU
-    tiled layouts (~14 us/frame; the 0.90x sharded-vs-unsharded gap of
-    VERDICT r2).  The tiny pilot reshape stays on the XLA side.
-    """
-    import jax.numpy as jnp
-
-    from ..ops import pallas_pipeline
-
-    if pilot.re.ndim == 3:        # [A_l, n1, n2] pre-shaped (cp == 0)
-        a_l = pilot.shape[0]
-        f = pilot.shape[1] * pilot.shape[2]
-        pilot = CArray(pilot.re.reshape(a_l, f), pilot.im.reshape(a_l, f))
-    pilot = fastpath.widen_sc16(pilot)
-    yp = fastpath.fft_permuted(drop_cyclic_prefix(pilot, cp))   # [A_l, F] perm
-    h, hsq_local = fastpath.ls_permuted(yp, x_perm)
-    hre, him = h.re, h.im
-
-    if data.re.ndim == 4:         # kernel-native layout flows straight in
-        y = data
-        f = data.shape[-2] * data.shape[-1]
-    else:
-        y = drop_cyclic_prefix(data, cp)
-        f = y.shape[-1]
-    ones = jnp.ones(f, jnp.float32)
-    num_local = pallas_pipeline.fused_pipeline(y, hre, him, ones,
-                                               exact=exact)  # kernel order
-
-    num_re, num_im, hsqrd = jax.lax.psum(
-        (num_local.re, num_local.im, hsq_local), ANT_AXIS)
-    inv = 1.0 / hsqrd
-    # hsqrd is in fastpath perm order; reorder to the kernel's bit-reversed
-    # k1 before the elementwise divide, then edge-gather to reference order.
-    n1, n2 = fastpath._fast_split(f)
-    inv_k = inv.reshape(n1, n2)[jnp.asarray(pallas_pipeline._bitrev(n1))].reshape(f)
-    eq = CArray(num_re * inv_k[None], num_im * inv_k[None])
-    return pallas_pipeline.to_reference_order(eq, f)
-
-
-def _sharded_demod_whole_fused(frame: CArray, x_perm: CArray, *,
-                               exact: bool = True) -> CArray:
-    """Whole-frame fused shard body: the frame arrives in the kernel-native
-    [S, A_local, n1, n2] layout and the pilot row is sliced IN-SHARD -- the
-    same whole-frame placement the unsharded bench ships (docs/PERF.md r3
-    negatives: pre-split (pilot, data) entry measured 1-3% slower than
-    whole-frame under shared-compile interleaving; the separate pilot
-    transfer and the lost tile-0 pipelining cost more than the in-jit pilot
-    slice they remove).  Under time sharding each shard's local view is its
-    own pilot-headed mini-frame (``whole_blocks`` layout), so the same body
-    serves every mesh shape.  sc16 planar int16 frames are accepted; the
-    pilot row widens in the body, data widens in the kernel.
-    """
-    return _sharded_demod_local_fused(frame[0], frame[1:], x_perm,
-                                      cp=0, exact=exact)
-
-
-def whole_blocks(frame, time_shards: int, axis: int = 0):
-    """Pilot-per-block layout for the time-sharded whole-frame entry.
-
-    Repeats the pilot row at the head of each time block along ``axis``:
-    [1 + S_d, ...] -> [time_shards + S_d, ...], so every ``time`` shard's
-    local view of the placed array is its own [1 + S_d/T, ...] mini-frame
-    with the pilot in row 0.  One extra symbol of transfer per additional
-    time shard buys a collective-free whole-frame placement (the
-    alternative -- replicating the pilot over ``time`` while splitting the
-    data -- cannot be expressed in a single whole-array PartitionSpec).
-    """
-    if time_shards == 1:
-        return frame
-    if isinstance(frame, CArray):
-        return CArray(whole_blocks(frame.re, time_shards, axis),
-                      whole_blocks(frame.im, time_shards, axis))
-    xp = jnp if isinstance(frame, jax.Array) else np
-    x = xp.moveaxis(frame, axis, 0)
-    if (x.shape[0] - 1) % time_shards:
-        raise ValueError(f"{x.shape[0] - 1} data symbols not divisible by "
-                         f"{time_shards} time shards")
-    blocks = xp.split(x[1:], time_shards)
-    out = xp.concatenate([xp.concatenate([x[:1], b]) for b in blocks])
-    return xp.moveaxis(out, 0, axis)
 
 
 class ShardedUplinkReceiver:
@@ -191,29 +101,22 @@ class ShardedUplinkReceiver:
     """
 
     def __init__(self, cfg: FrameConfig, pilot_x: np.ndarray, mesh: Mesh,
-                 fft_impl: Optional[str] = None, pipeline: Optional[str] = None,
-                 exact: bool = True):
-        # Default shard body, decided on hardware data (r2, 16x1024x101 on
-        # the v5e 1x1 mesh): fused 23.3 Gs/s/chip vs fast 21.1 -- the Pallas
-        # kernel wins under shard_map too, so TPU defaults to 'fused'.  CPU
-        # meshes default to 'fast' (the interpreted kernel is slow in tests).
-        if pipeline is None:
-            pipeline = "fast" if jax.default_backend() == "cpu" else "fused"
+                 fft_impl: Optional[str] = None,
+                 pipeline: Optional[str] = None):
+        """pipeline: 'composed' (default) or 'fast' shard body; see
+        ``body.choose_body``."""
         cfg.validate()
-        if pipeline not in ("fused", "fast", "composed"):
-            raise ValueError(f"unknown pipeline {pipeline!r}: "
-                             "expected 'fused', 'fast' or 'composed'")
+        pipeline, fft_impl = choose_body(pipeline, fft_impl)
         if pilot_x.shape[-1] != cfg.num_subcarriers:
             raise ValueError(
                 f"pilot has {pilot_x.shape[-1]} bins, config wants "
                 f"{cfg.num_subcarriers}")
         self.cfg = cfg
         self.mesh = mesh
-        self.fft_impl = fft_impl or fft_ops.default_impl()
+        self.fft_impl = fft_impl
         self.pipeline = pipeline
         self.x_full = (fastpath.prepare_pilot_fast(pilot_x, cfg.fft_size)
-                       if pipeline in ("fast", "fused")
-                       else ls_ops.pad_pilot(pilot_x))
+                       if pipeline == "fast" else ls_ops.pad_pilot(pilot_x))
 
         n_ant = mesh.shape[ANT_AXIS]
         n_time = mesh.shape[TIME_AXIS]
@@ -224,16 +127,7 @@ class ShardedUplinkReceiver:
             raise ValueError(f"{cfg.num_data_symbols} data symbols not divisible "
                              f"by {n_time} time shards")
 
-        if pipeline == "fused":
-            from ..ops.pallas_pipeline import supports_fused, warn_fused_fallback
-            if not supports_fused(cfg.fft_size):
-                warn_fused_fallback(cfg.fft_size, "ShardedUplinkReceiver")
-                pipeline = self.pipeline = "fast"
-        self.exact = exact
-        if pipeline == "fused":
-            body = functools.partial(_sharded_demod_local_fused,
-                                     cp=cfg.cyclic_prefix, exact=exact)
-        elif pipeline == "fast":
+        if pipeline == "fast":
             body = functools.partial(_sharded_demod_local_fast,
                                      cp=cfg.cyclic_prefix)
         else:
@@ -247,128 +141,14 @@ class ShardedUplinkReceiver:
                       P(TIME_AXIS, ANT_AXIS, None),  # data  [S-1, A, N]
                       P()),                          # x_full replicated
             out_specs=P(TIME_AXIS, None),            # out   [S-1, F-1]
-            # pallas_call outputs carry no varying-mesh-axes metadata; the
-            # fused shard body needs the vma check relaxed.
-            check_vma=(pipeline != "fused"),
         )
         self._demod = jax.jit(mapped)
-        # Kernel-native 4-D entry (fused, CP-free): pilot [A, n1, n2], data
-        # [S-1, A, n1, n2] flow through shard_map in the kernel's own layout
-        # so no per-frame re-tiling copy happens inside the custom call
-        # (VERDICT r2 Missing #4 / Next #3).
-        self._demod4 = None
-        if pipeline == "fused" and cfg.cyclic_prefix == 0:
-            mapped4 = jax.shard_map(
-                body,
-                mesh=mesh,
-                in_specs=(P(ANT_AXIS, None, None),
-                          P(TIME_AXIS, ANT_AXIS, None, None),
-                          P()),
-                out_specs=P(TIME_AXIS, None),
-                check_vma=False,
-            )
-            self._demod4 = jax.jit(mapped4)
-        # Whole-frame kernel-native entry (fused, cp=0): the [S, A, n1, n2]
-        # frame enters shard_map whole and the pilot row is sliced in-shard,
-        # mirroring the unsharded bench's whole-frame placement.  Time-
-        # sharded meshes use the pilot-per-block layout (``whole_blocks``):
-        # the leading axis shards over ``time`` and every shard's local view
-        # is its own pilot-headed mini-frame.
-        self._n_time = n_time
-        self._demod_whole = None
-        if pipeline == "fused" and cfg.cyclic_prefix == 0:
-            whole_body = functools.partial(_sharded_demod_whole_fused,
-                                           exact=exact)
-            self._whole_spec = (P(None, ANT_AXIS, None, None) if n_time == 1
-                                else P(TIME_AXIS, ANT_AXIS, None, None))
-            mappedw = jax.shard_map(
-                whole_body,
-                mesh=mesh,
-                in_specs=(self._whole_spec,
-                          P()),
-                out_specs=P(TIME_AXIS, None),
-                check_vma=False,
-            )
-            self._demod_whole = jax.jit(mappedw)
         self._demod_capture = None  # built lazily by demod_capture
 
     def demod_frame(self, frame) -> CArray:
-        """[S, A, F+cp] (host complex64 or planar CArray) -> [S-1, F-1].
-
-        Fused receivers with cp=0 also accept the kernel-native pre-shaped
-        [S, A, n1, n2] layout (pallas_pipeline.fused_frame_shape): frames
-        PLACED in that shape skip the operand re-tiling copy per frame."""
+        """[S, A, F+cp] (host complex64 or planar CArray) -> [S-1, F-1]."""
         c = frame if isinstance(frame, CArray) else CArray.from_numpy(frame)
-        if c.re.ndim == 4:
-            if self._demod4 is None:
-                raise ValueError("4-D pre-shaped frames need pipeline='fused' "
-                                 "and cyclic_prefix=0")
-            want_whole = self.cfg.frame_len + self._n_time - 1
-            if c.shape[0] not in (self.cfg.frame_len, want_whole):
-                # Fail loud here instead of with an opaque kernel shape
-                # error: the leading dim selects the interpretation (plain
-                # [S, ...] vs pilot-per-block whole_blocks), so anything
-                # else is a malformed frame for this receiver's geometry.
-                raise ValueError(
-                    f"4-D frame leading dim {c.shape[0]} matches neither a "
-                    f"plain frame [{self.cfg.frame_len}, ...] nor the "
-                    f"whole_blocks layout [{want_whole}, ...] for "
-                    f"frame_len={self.cfg.frame_len}, "
-                    f"time_shards={self._n_time}")
-            if (self._demod_whole is not None and self._n_time > 1
-                    and c.shape[0] == want_whole):
-                # Pilot-per-block (whole_blocks) frames are a layout only
-                # the whole entry consumes -- time-sharded meshes place
-                # them so the time axis lands sharded.
-                return self._demod_whole(c, self.x_full)
-            # Plain [S, ...] frames take the pre-split entry: the hardware
-            # A/B measures it 6-7% FASTER than the whole entry (57.5 vs
-            # 61.3 us/frame sc16-exact 1x1, tools/ab_sharded.py r4+r5) --
-            # the in-shard-map pilot slice costs more than the two eager
-            # host slices -- and it is the entry BENCH_MODES.json ratchets
-            # (sharded_entry: "split").  demod_whole stays as the explicit
-            # opt-in for whole-placed flows.
-            return self._demod4(c[0], c[1:], self.x_full)
         return self._demod(c[0], c[1:], self.x_full)
-
-    def demod_whole(self, frame) -> CArray:
-        """Kernel-native whole frame -> [S-1, F-1], pilot row sliced
-        in-shard (fused, cp=0).  EXPLICIT OPT-IN: on ant-only meshes the
-        hardware A/B measures this entry 6-7% slower than the pre-split
-        default (tools/ab_sharded.py; docs/PERF.md), so ``demod_frame``
-        no longer routes plain frames here -- it exists for flows that
-        already hold a whole-placed frame (one transfer, e.g. the
-        distributed all-gather path) and for time-sharded whole_blocks
-        layouts, which only this entry consumes.
-
-        time_shards == 1 takes the plain [S, A, n1, n2] frame; time-sharded
-        meshes take the pilot-per-block layout [T + S-1, A, n1, n2]
-        (``whole_blocks(frame, T)`` / ``place_whole``)."""
-        if self._demod_whole is None:
-            raise ValueError("demod_whole needs pipeline='fused' and "
-                             "cyclic_prefix=0")
-        c = frame if isinstance(frame, CArray) else CArray.from_numpy(frame)
-        want = self.cfg.frame_len + self._n_time - 1
-        if c.shape[0] != want:
-            raise ValueError(
-                f"demod_whole on {self._n_time} time shards expects the "
-                f"pilot-per-block layout [{want}, A, n1, n2] "
-                f"(whole_blocks(frame, {self._n_time})); got leading dim "
-                f"{c.shape[0]}")
-        return self._demod_whole(c, self.x_full)
-
-    def place_whole(self, frame) -> CArray:
-        """Host kernel-native frame [S, A, n1, n2] -> device placement for
-        ``demod_whole``: builds the pilot-per-block layout when the mesh is
-        time-sharded and transfers with the (time, ant) whole-frame
-        sharding applied, so the shard_map call re-shards nothing."""
-        if self._demod_whole is None:
-            raise ValueError("place_whole needs pipeline='fused' and "
-                             "cyclic_prefix=0")
-        c = frame if isinstance(frame, CArray) else CArray.from_numpy(frame)
-        c = whole_blocks(c, self._n_time)
-        s = NamedSharding(self.mesh, self._whole_spec)
-        return CArray(jax.device_put(c.re, s), jax.device_put(c.im, s))
 
     def demod_capture(self, frames) -> CArray:
         """[K, S, A, F+cp] capture -> [K, S-1, F-1], one dispatch.
@@ -378,23 +158,11 @@ class ShardedUplinkReceiver:
         the mesh, and the host re-enters only once per capture.
         """
         if self._demod_capture is None:
-            demod3, demod4, demodw = self._demod, self._demod4, self._demod_whole
-            whole_lead = self.cfg.frame_len + self._n_time - 1
-
-            n_time = self._n_time
+            demod = self._demod
 
             def capture(frs: CArray, xf) -> CArray:
-                if (frs.re.ndim == 5 and demodw is not None and n_time > 1
-                        and frs.shape[1] == whole_lead):
-                    # Whole-frame route (pilot sliced in-shard; on time-
-                    # sharded meshes frames carry the whole_blocks layout).
-                    def body(_, x):
-                        return None, demodw(x, xf)
-                else:
-                    demod = demod4 if frs.re.ndim == 5 else demod3
-
-                    def body(_, x):
-                        return None, demod(x[0], x[1:], xf)
+                def body(_, x):
+                    return None, demod(x[0], x[1:], xf)
                 _, out = jax.lax.scan(body, None, frs)
                 return out
 
@@ -404,12 +172,7 @@ class ShardedUplinkReceiver:
 
     def demod_pilot_data(self, pilot: CArray, data: CArray) -> CArray:
         """Pre-split, possibly device-resident inputs: pilot [A, N], data
-        [S-1, A, N] -- or the kernel-native 4-D layout (fused, cp=0)."""
-        if data.re.ndim == 4:
-            if self._demod4 is None:
-                raise ValueError("4-D pre-shaped data needs pipeline='fused' "
-                                 "and cyclic_prefix=0")
-            return self._demod4(pilot, data, self.x_full)
+        [S-1, A, N]."""
         return self._demod(pilot, data, self.x_full)
 
     def place(self, frame: np.ndarray) -> Tuple[CArray, CArray]:

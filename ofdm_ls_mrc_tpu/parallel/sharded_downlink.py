@@ -4,7 +4,7 @@ The reference's downlink (cpuLS.hpp:391-529) is a CPU-only serial loop: one
 ``cgemm`` + ``cgetrf_/cgetri_`` per subcarrier to build the zero-forcing
 precoder (createZeroForcingMatrix, cpuLS.hpp:415-447) and one ``cgemv`` per
 subcarrier to apply it (multiplyWithChannelInv, cpuLS.hpp:449-463).  Both are
-embarrassingly parallel over the subcarrier axis, so the TPU-native layout
+embarrassingly parallel over the subcarrier axis, so the layout here
 shards that axis over EVERY device of the (ant, time) mesh -- there is no
 cross-subcarrier coupling, hence zero collectives; XLA only gathers at the
 jit boundary if the caller fetches the result to host.

@@ -7,9 +7,9 @@ payload INDEPENDENT of the antenna-shard count, because antennas reduce
 locally before the collective (the distributed form of the reference's
 intra-GPU antenna tree-reduce, gpuLS.cu:198-203,247-252).  These helpers
 read that structure off the compiled HLO so the dryrun
-(``__graft_entry__.dryrun_multichip``) and the committed scaling artifacts
-(``tools/scaling_bench.py``) can assert/record it rather than re-derive it
-from prose.
+(``__graft_entry__.dryrun_multichip``), the scaling harness
+(``tools/scaling_bench.py``) and ``chip_smoke.py --multi`` can assert or
+record it rather than re-derive it from prose.
 """
 
 from __future__ import annotations
@@ -23,17 +23,23 @@ import numpy as np
 def collective_signature(compiled_text: str) -> Tuple[int, int]:
     """(all_reduce_count, payload_fp32_words) read off compiled HLO text.
 
-    The single parse shared by the dryrun assertions, the committed scaling
-    artifacts, and tests -- fix payload accounting here, nowhere else.
+    The single parse shared by the dryrun assertions, the scaling harness,
+    chip_smoke.py and tests -- fix payload accounting here, nowhere else.
+    The GPU compiler splits each all-reduce into an async
+    ``all-reduce-start`` / ``all-reduce-done`` pair: the start is counted.
     """
-    ar_lines = [ln for ln in compiled_text.splitlines()
-                if re.search(r"=.*\ball-reduce\(", ln)]
+    op = re.compile(r"=.*?\ball-reduce(?:-start)?\(")
     elems = 0
-    for ln in ar_lines:
-        sig = ln.split("all-reduce(")[0]
+    count = 0
+    for ln in compiled_text.splitlines():
+        m = op.search(ln)
+        if m is None:
+            continue
+        count += 1
+        sig = ln[:m.end()].rsplit("all-reduce", 1)[0]
         elems += sum(int(np.prod([int(d) for d in dims.split(",")]))
                      for dims in re.findall(r"f32\[([0-9,]+)\]", sig))
-    return len(ar_lines), elems
+    return count, elems
 
 
 def fused_psum_signature(rx, frame: np.ndarray) -> Tuple[int, int]:

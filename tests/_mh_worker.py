@@ -2,7 +2,7 @@
 
 Launched by tests/test_multihost.py with env:
   MH_COORD=127.0.0.1:<port>  MH_NPROC=<N>  MH_PID=<0..N-1>
-  MH_LOCAL_DEVICES=<chips per process, default 4>
+  MH_LOCAL_DEVICES=<devices per process, default 4>
 Each process owns MH_LOCAL_DEVICES virtual CPU devices; the
 (ant=local, time=N) mesh puts the MRC psum inside each process and shards
 time across processes -- the exact topology recipe from parallel/multihost.py.
@@ -52,7 +52,7 @@ def main() -> int:
                                          cfg.symbol_len))).astype(np.complex64)
     want = dsp.demod_frame(frame, pilot, cfg.cyclic_prefix)
 
-    mesh = make_multihost_mesh()       # (ant=local chips, time=processes)
+    mesh = make_multihost_mesh()       # (ant=local devices, time=processes)
     rx = ShardedUplinkReceiver(cfg, pilot, mesh, fft_impl="four_step")
 
     # Each process contributes only ITS time-block of the data symbols,
@@ -116,10 +116,9 @@ def main() -> int:
     print(f"[proc {pid}] rel err vs golden: {err:.2e}", flush=True)
     assert err < 3e-3, err
 
-    # Second leg: the FLAGSHIP fused Pallas shard body composed with
-    # jax.distributed (VERDICT r2 Weak #4) -- 1024-point FFT so
-    # supports_fused holds; interpret-mode kernel on the CPU devices, same
-    # psum + mesh topology as a real pod run.
+    # Second leg: the default composed shard body (jnp.fft + XLA-fused
+    # LS/MRC) at the reference 1024-point FFT composed with
+    # jax.distributed -- same psum + mesh topology as a multi-card run.
     cfg2 = FrameConfig(num_antennas=4, fft_size=1024, cyclic_prefix=8,
                        frame_len=5)
     pilot2 = np.exp(2j * np.pi * rng.random(cfg2.num_subcarriers)
@@ -130,8 +129,8 @@ def main() -> int:
                                           cfg2.symbol_len))
               ).astype(np.complex64)
     want2 = dsp.demod_frame(frame2, pilot2, cfg2.cyclic_prefix)
-    rx2 = ShardedUplinkReceiver(cfg2, pilot2, mesh, pipeline="fused")
-    assert rx2.pipeline == "fused", rx2.pipeline
+    rx2 = ShardedUplinkReceiver(cfg2, pilot2, mesh)
+    assert rx2.pipeline == "composed", rx2.pipeline
 
     data2 = frame2[1:]
     s_local2 = data2.shape[0] // NPROC
@@ -148,16 +147,14 @@ def main() -> int:
     want2_local = want2[pid * s_local2:(pid + 1) * s_local2]
     err2 = (np.max(np.abs(got2 - want2_local))
             / max(np.max(np.abs(want2_local)), 1e-9))
-    print(f"[proc {pid}] fused rel err vs golden: {err2:.2e}", flush=True)
+    print(f"[proc {pid}] composed rel err vs golden: {err2:.2e}", flush=True)
     assert err2 < 5e-4, err2
 
     # Third leg: ANTENNAS across hosts (BASELINE config 5's 64-antenna
-    # split), whole-frame kernel-native entry -- each process contributes
-    # its own antennas' [S, A_local, n1, n2] block for ALL symbols
-    # (global_from_antenna_blocks), the pilot row slices in-shard
-    # (demod_whole), and the fused MRC psum is the only cross-process
-    # traffic.
-    from ofdm_ls_mrc_tpu.ops.pallas_pipeline import fused_frame_shape
+    # split) -- each process contributes its own antennas' [S, A_local, F]
+    # block for ALL symbols (global_from_antenna_blocks), pilot and data
+    # are sliced inside one jit (demod_app --distributed does the same),
+    # and the fused MRC psum is the only cross-process traffic.
     from ofdm_ls_mrc_tpu.parallel.multihost import global_from_antenna_blocks
 
     cfg3 = FrameConfig(num_antennas=8, fft_size=1024, cyclic_prefix=0,
@@ -171,14 +168,12 @@ def main() -> int:
               ).astype(np.complex64)
     want3 = dsp.demod_frame(frame3, pilot3, 0)
     mesh3 = make_multihost_mesh(ant_shards=8, time_shards=1)
-    rx3 = ShardedUplinkReceiver(cfg3, pilot3, mesh3, pipeline="fused")
-    assert rx3._demod_whole is not None
+    rx3 = ShardedUplinkReceiver(cfg3, pilot3, mesh3)
 
     a_local = cfg3.num_antennas // NPROC
-    sh4 = fused_frame_shape(cfg3.frame_len, a_local, cfg3.fft_size)
-    block3 = frame3[:, pid * a_local:(pid + 1) * a_local].reshape(sh4)
+    block3 = frame3[:, pid * a_local:(pid + 1) * a_local]
     gframe3 = global_from_antenna_blocks(block3, mesh3)
-    out3 = rx3.demod_whole(gframe3)
+    out3 = jax.jit(lambda c: rx3._demod(c[0], c[1:], rx3.x_full))(gframe3)
     got3 = (np.asarray(out3.re.addressable_shards[0].data)
             + 1j * np.asarray(out3.im.addressable_shards[0].data))
     err3 = np.max(np.abs(got3 - want3)) / np.max(np.abs(want3))

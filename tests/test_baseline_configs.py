@@ -6,10 +6,9 @@ this file maps each to a runnable check so coverage is traceable:
   1. 1 antenna, 64-subcarrier OFDM, QPSK vs the cpuLS-faithful golden
   2. 4 antennas, 64 subcarriers: full FFT+LS+MRC chain, EVM vs golden
   3. 16 ant x 1024, 16-QAM streamed through the async ring feed
-     (scaled-down geometry here; the full-size run on hardware is recorded
-     in docs/PERF.md "Streamed end-to-end")
+     (scaled-down geometry here; chip_smoke.py runs it full size on a GPU)
   4. 64 antennas, 1024 subcarriers: antenna-sharded MRC with psum
-     (virtual 8-device mesh; single-chip 64-ant timing in docs/PERF.md)
+     (virtual 8-device mesh; chip_smoke.py --multi runs it on four GPUs)
   5. multi-host N>=2 sharded time-blocks -- covered by
      tests/test_multihost.py (real 2-process jax.distributed run)
 """

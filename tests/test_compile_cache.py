@@ -4,13 +4,15 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 _RUN = """
 import jax
-jax.config.update("jax_platforms", "cpu")
 from ofdm_ls_mrc_tpu.utils import compile_cache
-d = compile_cache.enable({path!r})
+d = compile_cache.enable()
+print("dir:", d, "config:", jax.config.jax_compilation_cache_dir)
 # Small test programs compile in < the 0.5 s production threshold; lower it
 # so this smoke populates the cache.
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
@@ -23,51 +25,54 @@ print("entries:", sum(len(fs) for _, _, fs in __import__("os").walk(d)))
 """
 
 
-def _run(path):
-    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
-           + os.environ.get("PYTHONPATH", "")}
-    r = subprocess.run([sys.executable, "-c", _RUN.format(path=path)],
-                       capture_output=True, text=True, env=env, timeout=120)
+def _run(env_dir):
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_dir
+    r = subprocess.run([sys.executable, "-c", _RUN], capture_output=True,
+                       text=True, env=env, timeout=120, cwd="/")
     assert r.returncode == 0, r.stderr
-    return int(r.stdout.strip().rsplit(" ", 1)[-1])
+    lines = r.stdout.strip().splitlines()
+    return lines[0].split()[1], lines[0].split()[3], int(lines[-1].split()[-1])
 
 
 def test_cache_persists_across_processes(tmp_path):
     """First process populates the cache dir; a second process starts with
-    the entries already on disk (the cold-start cut for live apps on
-    remote-compile backends)."""
+    the entries already on disk (the cold-start cut for the apps)."""
     d = str(tmp_path / "xla")
-    n1 = _run(d)
+    _, _, n1 = _run(d)
     assert n1 > 0, "first process wrote no cache entries"
-    n2 = _run(d)
+    _, _, n2 = _run(d)
     assert n2 >= n1  # second process reuses (and may add) entries
 
 
-def test_cli_flag_and_env(tmp_path, monkeypatch):
-    """--compile-cache and OFDM_COMPILE_CACHE both reach enable()."""
-    import argparse
+def test_env_dir_wins(tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: that directory is used, and the code
+    sets no other."""
+    d = str(tmp_path / "from_env")
+    used, config, _ = _run(d)
+    assert used == d and config == d
 
+
+@pytest.mark.parametrize("env_value", [None, ""])
+def test_default_dir_is_fixed_inside_checkout(monkeypatch, env_value):
+    """Unset (or empty): one fixed path inside the checkout, whatever the
+    working directory or HOME, and git-ignored."""
     from ofdm_ls_mrc_tpu.utils import compile_cache
 
-    ap = argparse.ArgumentParser()
-    compile_cache.add_cli(ap)
-    ns = ap.parse_args(["--compile-cache", str(tmp_path / "a")])
-    assert ns.compile_cache == str(tmp_path / "a")
-    ns2 = ap.parse_args(["--compile-cache"])      # bare flag -> default dir
-    assert ns2.compile_cache == compile_cache.DEFAULT_DIR
-    ns3 = ap.parse_args([])
-    assert ns3.compile_cache is None
+    if env_value is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_value)
+    monkeypatch.setenv("HOME", "/nonexistent-home")
+    monkeypatch.chdir("/")
+    assert compile_cache.cache_dir() == os.path.join(REPO, ".jax_cache")
+    ignored = open(os.path.join(REPO, ".gitignore")).read().split()
+    assert ".jax_cache/" in ignored
 
-    calls = {}
-    monkeypatch.setattr(compile_cache, "enable",
-                        lambda p=None: calls.setdefault("path", p))
-    compile_cache.maybe_enable_from_args(ns)
-    assert calls["path"] == str(tmp_path / "a")
-    calls.clear()
-    monkeypatch.setenv("OFDM_COMPILE_CACHE", str(tmp_path / "b"))
-    compile_cache.maybe_enable_from_args(ns3)
-    assert calls["path"] == str(tmp_path / "b")
 
-    # demod_app's parser carries the flag.
-    from ofdm_ls_mrc_tpu.apps.demod_app import build_parser
-    assert build_parser().parse_args(["--compile-cache"]).compile_cache
+def test_default_dir_used_by_a_process():
+    used, config, n = _run(None)
+    assert used == config == os.path.join(REPO, ".jax_cache")

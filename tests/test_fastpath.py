@@ -57,10 +57,9 @@ def test_edge_gather_equals_finalize_semantics(rng):
 
 def test_demod_fast_int16_no_wraparound(rng):
     """sc16-native planar int16 frames through the XLA fast path: the
-    Karatsuba pre-sum (xre + xim) must widen BEFORE adding -- two
-    near-full-scale int16 samples wrap at +/-32767 otherwise.  The sc16
-    full-scale factor cancels in LS/MRC, so int16 output must match the
-    float32 run of the same (scaled) frame."""
+    planes widen (widen_sc16) BEFORE the Karatsuba pre-sum (xre + xim) --
+    two near-full-scale int16 samples wrap at +/-32767 otherwise -- so
+    int16 output must match the float32 run of the same quantized frame."""
     from ofdm_ls_mrc_tpu.golden.io import SC16_FULL_SCALE
     f, cp, s, a = 256, 0, 5, 4
     frame = crandn(rng, (s, a, f))

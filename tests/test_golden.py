@@ -210,7 +210,7 @@ class TestFileFormats:
         np.testing.assert_allclose(loaded, np.full(63, 0.707 + 0.707j), atol=1e-6)
 
     def test_output_roundtrip(self, tmp_path, rng):
-        p = tmp_path / "Output_tpu.dat"
+        p = tmp_path / "Output_gpu.dat"
         syms = (rng.standard_normal((5, 63)) + 1j * rng.standard_normal((5, 63))
                 ).astype(np.complex64)
         gio.append_output(str(p), syms[:2], truncate=True)
@@ -219,7 +219,7 @@ class TestFileFormats:
         np.testing.assert_array_equal(back, syms)
 
     def test_times_roundtrip(self, tmp_path):
-        p = tmp_path / "time_tpu.dat"
+        p = tmp_path / "time_gpu.dat"
         gio.store_times(str(p), 1e-3, 2e-3, 3e-3, 4e-3, 5e-3)
         back = gio.load_times(str(p))
         np.testing.assert_allclose(back, [1e-3, 2e-3, 3e-3, 4e-3, 5e-3], rtol=1e-6)

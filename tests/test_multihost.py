@@ -1,12 +1,13 @@
-"""Real multi-process jax.distributed test: 2 'hosts' x 4 virtual chips.
+"""Real multi-process jax.distributed test: 2 'hosts' x 4 virtual devices.
 
 The reference never scales compute past one box (SURVEY.md section 2: its
-only inter-host transport is the radio link).  This test runs the framework's
-actual DCN story end to end: two OS processes initialize jax.distributed
-against a local coordinator, build the (ant, time) mesh with antennas inside
-each process and time-blocks across processes, feed process-local data via
-``global_from_host_blocks`` (jax.make_array_from_process_local_data), and
-each process checks its own time-block against the NumPy golden.
+only inter-host transport is the radio link).  This test runs the
+framework's actual multi-process story end to end: two OS processes
+initialize jax.distributed against a local coordinator, build the
+(ant, time) mesh with antennas inside each process and time-blocks across
+processes, feed process-local data via ``global_from_host_blocks``
+(jax.make_array_from_process_local_data), and each process checks its own
+time-block against the NumPy golden.
 """
 
 import os
@@ -54,8 +55,9 @@ import pytest
 
 
 def test_four_process_distributed_demod():
-    """N=4 'hosts' x 2 chips each: the same worker legs (time-sharded fast,
-    fused+psum, antenna-across-hosts whole-frame) at a process count where
+    """N=4 'hosts' x 2 devices each: the same worker legs (time-sharded,
+    composed+psum at 1024, antenna-across-hosts whole-frame) at a process
+    count where
     any hidden pairwise assumption (2-way splits, coordinator races) would
     break.  BASELINE metric 2 asks for N>=2; this is the N>2 evidence."""
     port = _free_port()
@@ -87,14 +89,14 @@ def test_four_process_distributed_demod():
 @pytest.mark.parametrize("fft,frame_len,extra",
                          [(64, 9, {}), (1024, 3, {}),
                           (1024, 3, {"DAPP_SC16": "1", "DAPP_CONT": "1"})],
-                         ids=["fast-presplit", "fused-whole",
-                              "fused-sc16-continuous"])
+                         ids=["presplit-64", "composed-1024",
+                              "composed-sc16-continuous"])
 def test_two_process_distributed_demod_app(tmp_path, fft, frame_len, extra):
     """The real demod_app CLI in --distributed mode: each process feeds its
     own ring with ITS antennas' symbols (antenna-across-hosts, BASELINE
-    config 5) and process 0's output file matches the golden chain.  64-point
-    FFT exercises the pre-split fast shard body (loud fused fallback);
-    1024-point engages the fused kernel's whole-frame in-shard-pilot entry."""
+    config 5) and process 0's output file matches the golden chain, at a
+    64-point FFT and at the reference 1024-point FFT (f32 and sc16 rings,
+    the latter with a continuous consumer)."""
     import uuid
 
     port = _free_port()

@@ -15,14 +15,17 @@ def test_soak_smoke(tmp_path):
     # --num-frames 3: the producer cycles three DISTINCT frames, so the
     # verdict also proves the writer-seq provenance mapping (every clean
     # block must score against its own sent grid, not just any grid).
+    # --frames 4: the run ends after four delivered frames, however busy
+    # the host (--seconds only caps it).
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "soak.py"),
-         "--seconds", "8", "--min-frames", "2", "--num-frames", "3",
-         "--dir", str(tmp_path)],
+         "--frames", "4", "--seconds", "150", "--min-frames", "2",
+         "--num-frames", "3", "--dir", str(tmp_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=280)
     assert r.returncode == 0, r.stdout + r.stderr
     rec = json.loads(r.stdout.strip().splitlines()[-1])
     assert rec["pass"] and rec["clean_frames"] >= 2
+    assert rec["frames_target"] == 4
     assert rec["evm_clean_db"]["max"] <= -25.0
     assert rec["rx_rc"] == 0 and rec["demod_rc"] == 0
 
@@ -68,9 +71,8 @@ def test_soak_per_symbol_consumer(tmp_path):
 
 def test_soak_per_symbol_sc16_native(tmp_path):
     """The per-symbol consumer rides the sc16 wire format end to end:
-    planar INT16 per-symbol ring reads feed kernels that widen on device
-    (VERDICT r4 item 1's soak leg).  Default small geometry has no
-    (2^k,128) split, so the composed body widens in-jit."""
+    planar INT16 per-symbol ring reads feed the composed body, which
+    widens them in-jit."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "soak.py"),
@@ -90,13 +92,15 @@ def test_soak_distributed(tmp_path):
     capture splits into two per-host antenna blocks with independent
     rate-paced producers, two demod_app --distributed consumers demodulate
     in LOCKSTEP (per-frame writer-seq agreement over jax.distributed), and
-    every clean-indexed frame scores against its own sent grid (VERDICT r4
-    Missing #2: sustained multi-host operation)."""
+    every clean-indexed frame scores against its own sent grid (sustained
+    multi-host operation).  Ends after four delivered frames, however busy
+    the host."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "soak.py"),
-         "--seconds", "10", "--min-frames", "2", "--num-frames", "3",
-         "--distributed", "2", "--antennas", "8", "--dir", str(tmp_path)],
+         "--frames", "4", "--seconds", "150", "--min-frames", "2",
+         "--num-frames", "3", "--distributed", "2", "--antennas", "8",
+         "--dir", str(tmp_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=280)
     assert r.returncode == 0, r.stdout + r.stderr
     rec = json.loads(r.stdout.strip().splitlines()[-1])
@@ -127,7 +131,7 @@ def test_soak_continuous_sync_rejects_multi_frame():
 def test_soak_per_symbol_sharded_mesh(tmp_path):
     """The per-symbol consumer on an ANTx1 mesh: the antenna-sharded
     streaming demodulator (parallel/streaming.py) under the same
-    backpressured-producer verdict -- the r4 low-latency path soaked
+    backpressured-producer verdict -- the low-latency path soaked
     through the live topology."""
     flags = os.environ.get("XLA_FLAGS", "")
     if "host_platform_device_count" not in flags:

@@ -1,14 +1,14 @@
 #!/usr/bin/env bash
-# Reproduce the headline results end to end.
+# Reproduce the checks end to end.
 #
-#   bash tools/repro.sh            # on a TPU host (bench hits the chip)
+#   bash tools/repro.sh            # CPU parts anywhere; GPU parts need a card
 #
 # Individual pieces:
-#   python bench.py                          one JSON line: samples/s/chip
-#                                            (sc16-native default mode)
+#   python chip_smoke.py                     the main path on one GPU
+#   python chip_smoke.py --multi             --mesh 4x1 and --distributed on 4
+#   python bench.py                          device time per frame, one GPU
 #   python tools/ring_bench.py --batch       shm ingest throughput
-#   python -m pytest tests/ -q               220+ tests (forced-CPU 8-dev mesh)
-#   docs/PERF.md                             methodology + measured numbers
+#   python -m pytest tests/ -q               the suite (forced-CPU 8-dev mesh)
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -19,9 +19,8 @@ echo "== test suite (virtual 8-device CPU mesh) =="
 python -m pytest tests/ -q
 
 echo "== multichip dry run (8 virtual CPU devices) =="
-XLA_FLAGS="--xla_force_host_platform_device_count=8" python - <<'EOF'
+JAX_PLATFORMS=cpu XLA_FLAGS="--xla_force_host_platform_device_count=8" python - <<'EOF'
 import jax
-jax.config.update("jax_platforms", "cpu")
 import __graft_entry__ as g
 fn, args = g.entry()
 jax.jit(fn)(*args)
@@ -36,42 +35,28 @@ python tools/scaling_bench.py --virtual 8 --reps 2 --r-hi 7 --batch 1 \
 echo "== SNR waterfall (theory cross-check, small sweep) =="
 python tools/waterfall.py --platform cpu --antennas 8 --fft 128 \
     --symbols 33 --cp 16 --num-taps 4 --snrs=0,10,20 --seeds 2 \
-    --pipelines golden,fast --out /tmp/WATERFALL_repro.json \
+    --pipelines golden,composed,fast --out /tmp/WATERFALL_repro.json \
     --fail-above-db 0.5
 
 echo "== ring ingest benchmark =="
 python tools/ring_bench.py --batch --symbols 10100
 python tools/ring_bench.py --batch --symbols 10100 --dtype sc16
 python tools/ring_bench.py --batch --symbols 10100 --dtype sc16 --batch-write
-python tools/ring_bench.py --decompose   # write-leg/read-leg split (PERF.md)
+python tools/ring_bench.py --decompose   # write-leg/read-leg split
 
-echo "== TPU headline benchmark =="
-python bench.py
-
-echo "== sharded-path benchmark (hardware 1x1 mesh) =="
-python bench.py --mesh 1x1
-
-echo "== regression gates (EVM vs golden + samples/s floor) =="
+echo "== accuracy gate (EVM vs golden) =="
 python tools/gate.py
 
-# After a chip outage, run the full hardware checklist in priority order
-# (headline sanity, accuracy gate, sharded A/B, latency + mode ratchets,
-# compile-cache timing) with one command:
-#   python tools/chip_checklist.py
-# Full per-mode ratchet (one bench per BENCH_MODES.json entry, ~25 min):
-#   python tools/gate.py --skip-accuracy --skip-perf --modes
-# Refresh the mode records after a perf improvement with:
-#   python bench.py [mode flags] --record BENCH_MODES.json
-# Per-symbol (ts=1) latency record (and its ratcheting gate):
-#   python tools/latency_probe.py --record LATENCY.json
-#   python tools/gate.py --skip-accuracy --skip-perf --latency
-# Sharded-entry A/B (split vs whole, shared-compile interleaved):
-#   python tools/ab_sharded.py --mesh 1x1
-# Sustained-pressure soak (three processes, per-frame EVM verdict; on the
-# TPU host run minutes long at the reference geometry -- the committed
-# SOAK_r4.json is such a run):
+if python -c 'import jax, sys; sys.exit(jax.default_backend() != "gpu")'; then
+  echo "== GPU: smoke, benchmark, per-symbol latency =="
+  python chip_smoke.py
+  python bench.py --cells composed/sc16,composed/f32,fast/sc16,fast/f32
+  python tools/latency_probe.py
+else
+  echo "== no GPU: chip_smoke.py, bench.py and latency_probe.py skipped =="
+fi
+
+# Sustained-pressure soak (three processes, per-frame EVM verdict) at the
+# reference geometry on a GPU host:
 #   python tools/soak.py --seconds 120 --antennas 16 --fft-size 1024 \
 #       --frame-len 101 --ring-dtype sc16 --sc16-native --rate 4e6
-# Full-geometry SNR waterfall with the fused kernel on the chip (the
-# committed WATERFALL*.json artifacts):
-#   python tools/waterfall.py --pipelines golden,fused [--scheme 16qam]

@@ -132,7 +132,7 @@ def _decompose(args, SymbolRing):
     write leg and the prealloc batch-read leg separately (steady-state: the
     last passes, after shm pages and buffers are warm).  The end-to-end
     `--batch` number minus these legs is producer/consumer cache-coherence
-    contention -- see docs/PERF.md 'Host ring ingest profile'."""
+    contention."""
     cols = args.fft + args.cp
     keep = cols - args.cp
     uid = f"/ringdec_{uuid.uuid4().hex[:8]}"

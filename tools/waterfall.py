@@ -5,7 +5,7 @@ offline golden-file comparison (README.md:2-5, cpuLS.hpp:374-380) -- it has
 no way to answer "is the demodulator within X dB of theory?".  This tool
 sweeps Es/N0 through the synthetic multipath channel (sim/channel.py) and,
 for each operating point, scores every selected pipeline (NumPy golden,
-XLA fast, Pallas fused, composed) on:
+composed, fast) on:
 
   * post-MRC EVM (dB) against the sent constellation grid, and
   * hard-decision symbol error rate,
@@ -17,13 +17,12 @@ already accounts for, so ser ~= ser_theory(evm) at every point -- a
 self-consistency contract that needs no channel-model calibration.
 
 Writes one JSON artifact (default WATERFALL.json) with one row per swept
-SNR and a `pipelines_agree_db` summary.  Runs on any backend; the CPU
-default uses the XLA fast pipeline (the fused kernel targets TPU).
+SNR and a `pipelines_agree_db` summary.  Runs on any backend.
 
 Usage:
   python tools/waterfall.py                          # defaults, WATERFALL.json
   python tools/waterfall.py --scheme 16qam --snrs 0,5,10,15,20,25 \
-      --pipelines golden,fast --seeds 3 --out WATERFALL.json
+      --pipelines golden,composed,fast --seeds 3 --out WATERFALL.json
 """
 
 from __future__ import annotations
@@ -146,11 +145,6 @@ def run_sweep(antennas: int, fft: int, symbols: int, cp: int, scheme: str,
         "config": {"antennas": antennas, "fft": fft, "symbols": symbols,
                    "cp": cp, "num_taps": num_taps, "seeds": seeds},
         "pipelines": list(pipelines),
-        # What each requested pipeline resolved to on this backend (e.g.
-        # 'fast' downgrades to 'composed' on the complex-dtype CPU path).
-        "effective_pipelines": {
-            p: (receiver_cache[p].pipeline if p in receiver_cache else p)
-            for p in pipelines},
         "pipelines_agree_db": round(worst_gap_db, 3),
         "note": ("ser_theory is the closed-form AWGN SER at the measured "
                  "per-(realization,bin) post-MRC EVM. Measured SER sits "
@@ -178,7 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seeds", type=int, default=3,
                     help="channel/noise realizations averaged per point")
     ap.add_argument("--pipelines", default="golden,fast",
-                    help="comma list of golden,fast,fused,composed")
+                    help="comma list of golden,composed,fast")
     ap.add_argument("--out", default=os.path.join(REPO, "WATERFALL.json"))
     ap.add_argument("--platform", default=None,
                     help="pin jax_platforms (e.g. cpu) before first use")
@@ -199,7 +193,7 @@ def main(argv=None) -> int:
     snrs = [float(s) for s in args.snrs.split(",") if s]
     pipelines = [p for p in args.pipelines.split(",") if p]
     for p in pipelines:
-        if p not in ("golden", "fast", "fused", "composed"):
+        if p not in ("golden", "fast", "composed"):
             raise SystemExit(f"unknown pipeline {p!r}")
 
     def progress(row):
